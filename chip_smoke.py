@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (hlod_gaussians_torch) on one NVIDIA
+GPU: builds the blend kernel, holds it to its plain PyTorch version, serves
+flat and hierarchical-LOD renders through the public entry points, and
+prints the kernel table.
+
+    python3 chip_smoke.py          # from the repository root, one GPU
+
+Phases (any failure raises and exits non-zero):
+  1. card name and power limit; build the kernel with nvcc (build seconds).
+  2. kernel vs plain version on small scenes (LOD on/off, seen, 16x16,
+     32x32, 16x8 and 8x128 tiles, sticky early stop across entry batches,
+     dense overlap with saturated pixels): images, inverse depth and final T
+     to atol 2e-5, n_contrib and seen exact; then one 1080p bench frame:
+     image to atol 1e-4, share of pixels whose n_contrib differs <= 1e-4.
+  3. flat serving: 8 requests through render.render_arrays at 1920x1080 on
+     the 100k-Gaussian SH-3 bench scene (scripts/bench_scene.py), 32x32
+     tiles, tight binning, max_dup 352*1024; every request untruncated and
+     finite, one kernel launch each; per-frame median and the stage split.
+  4. LOD serving: the oracle hierarchy (tests/fixtures/oracle/
+     hierarchy.dhier.gz) with a 100k-point skybox, render.render_lod at
+     1080p for tau 0, 3 and 15; one view against the plain (xla) path.
+  5. the {"kernels": [...]} line, then the device line.
+
+Without a CUDA device it exits 1 before printing any result.
+"""
+
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SMALL_ATOL = 2e-5
+FRAME_ATOL = 1e-4
+FRAME_NC_SHARE = 1e-4
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 and f32 outside the
+# tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# f32 operations of the kernel's loop (csrc/blend_forward.cu): per evaluated
+# (entry, pixel) pair dx, dy, power (7), the power test, exp, op*G, min, the
+# alpha_min test, 1-alpha, T*(1-alpha) and the t_eps test; per applied pair
+# also w and four FMAs (the bench frame has no LOD)
+OPS_EVAL, OPS_APPLY = 18, 9
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps, warmup=1):
+    """Median of `reps` CUDA-event timings of fn() on the current stream."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def load_bench_scene():
+    spec = importlib.util.spec_from_file_location(
+        "bench_scene", os.path.join(ROOT, "scripts", "bench_scene.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    # float32, as jnp.asarray makes them in bench.py (its log_scale comes
+    # out of numpy as float64)
+    return {k: v.astype(np.float32)
+            for k, v in mod.make_bench_scene().items()}
+
+
+def small_scene(dev, n, seed, width, height, big=False, lod=False,
+                stacked=False):
+    """Projected Gaussians for a kernel-vs-plain case (the shapes of the
+    JAX package's blend tests, scaled up)."""
+    import torch
+    from hlod_gaussians_torch.ops import gaussian_math
+    from hlod_gaussians_torch.utils.camera import make_camera
+
+    rng = np.random.default_rng(seed)
+    if stacked:
+        xyz = np.zeros((n, 3), np.float32)
+        xyz[:, :2] = rng.uniform(-0.02, 0.02, (n, 2))
+        xyz[:, 2] = np.linspace(3.0, 5.0, n)
+        scales = np.full((n, 3), 0.08, np.float32)
+        quats = np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1))
+        ops = np.full((n,), 0.035, np.float32)
+    else:
+        xyz = rng.normal(size=(n, 3)).astype(np.float32) * 1.2
+        xyz[:, 2] = 4.0 + rng.uniform(-1, 1, n)
+        scales = np.exp(rng.normal(size=(n, 3)) * 0.4
+                        - (1.5 if big else 2.5)).astype(np.float32)
+        quats = rng.normal(size=(n, 4)).astype(np.float32)
+        ops = rng.uniform(0.2, 0.95, n).astype(np.float32)
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, width, height,
+                      device=dev)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    p = gaussian_math.project_gaussians(
+        t(xyz), gaussian_math.compute_cov3d(t(scales), t(quats)), t(ops),
+        cam.world_view, cam.full_proj, width, height, cam.focal_x,
+        cam.focal_y, cam.tan_fovx, cam.tan_fovy)
+    color = t(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    ts = t(rng.uniform(0, 1, n).astype(np.float32)) if lod else None
+    kids = t(rng.integers(0, 4, n).astype(np.int32)) if lod else None
+    return p, color, ts, kids
+
+
+def blend_inputs(p, color, ts, kids, width, height, tile_w, tile_h, max_dup,
+                 tight):
+    from hlod_gaussians_torch.ops.binning import bin_gaussians
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_features
+    import torch
+    bins = bin_gaussians(p.xy, p.depth, p.radius, p.valid, width, height,
+                         tile_w, tile_h, max_dup,
+                         ext=p.ext if tight else None,
+                         reff2=p.reff2 if tight else None)
+    feats = blend_features(p.xy, p.conic, p.opacity, color,
+                           1.0 / torch.clamp_min(p.depth, 1e-6), ts, kids)
+    return bins, feats
+
+
+def compare(name, got, ref, atol, nc_share=0.0):
+    """Kernel outputs vs plain outputs; returns the max abs error."""
+    import torch
+    img_err = float((got[0] - ref[0]).abs().max())
+    ft_err = float((got[1] - ref[1]).abs().max())
+    nc_diff = int((got[2] != ref[2]).sum())
+    share = nc_diff / got[2].numel()
+    seen_diff = (None if got[3] is None
+                 else int((got[3] != ref[3]).sum()))
+    log(f"  {name}: max|d img4| {img_err:.3e}  max|d final_t| {ft_err:.3e}"
+        f"  n_contrib diffs {nc_diff} ({share:.2e})  seen diffs {seen_diff}"
+        f"  max n_contrib {int(ref[2].max())}")
+    if not (img_err <= atol and ft_err <= atol and share <= nc_share
+            and seen_diff in (None, 0)):
+        raise AssertionError(f"kernel disagrees with its plain version: {name}")
+    if not bool(torch.isfinite(got[0]).all()):
+        raise AssertionError(f"non-finite kernel output: {name}")
+    return max(img_err, ft_err)
+
+
+def work_of_frame(feats, bins, width, height, tile_w, tile_h, t_eps,
+                  alpha_min):
+    """(evaluated, applied) (entry, pixel) pairs of the serial loop on these
+    inputs: a replay of the plain version's control flow that counts, per
+    pixel, the entries it evaluates up to its stop."""
+    import torch
+    from hlod_gaussians_torch.ops.rasterize_xla import (entry_alpha,
+                                                        tile_pixels)
+    px, py, inside = tile_pixels(width, height, tile_w, tile_h, feats.device)
+    pxf, pyf = px.float(), py.float()
+    t_run = torch.ones(px.shape, device=feats.device)
+    done = ~inside
+    evaluated = torch.zeros((), dtype=torch.int64, device=feats.device)
+    applied = torch.zeros_like(evaluated)
+    for k in range(int(bins.tile_counts.max())):
+        live = (k < bins.tile_counts)[:, None] & ~done
+        evaluated += live.sum()
+        f = feats[bins.sorted_gid[torch.clamp(bins.tile_starts + k, 0,
+                                              bins.sorted_gid.shape[0] - 1)
+                                  ].long()]
+        alpha, power = entry_alpha(f, pxf, pyf, use_lod=False)
+        pre = live & (power <= 0.0) & (alpha >= alpha_min)
+        test_t = t_run * (1.0 - alpha)
+        trigger = pre & (test_t < t_eps)
+        apply = pre & ~trigger
+        applied += apply.sum()
+        t_run = torch.where(apply, test_t, t_run)
+        done = done | trigger
+    return int(evaluated), int(applied)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this smoke "
+              "test runs only on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.data.dhier import load_dhier
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.binning import bin_gaussians
+    from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
+    from hlod_gaussians_torch.train.post import create_from_dhier
+    from hlod_gaussians_torch.utils.camera import make_camera
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernel = rasterize_cuda.blend_forward
+    t_start = time.perf_counter()
+
+    # ---- 1. card and build ---------------------------------------------
+    smi = nvidia_smi_line()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    lib_path, build_log = rasterize_cuda.build()
+    rasterize_cuda._library()
+    log(f"[1] built {os.path.relpath(lib_path, ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log("    ptxas: " + line.strip())
+
+    # ---- 2. kernel vs plain --------------------------------------------
+    log("[2] kernel vs plain version")
+    max_err = 0.0
+    cases = [
+        # name, (tile_w, tile_h), scene kwargs, want_seen
+        ("16x16 seen", (16, 16), dict(n=2000, seed=5), True),
+        ("16x16", (16, 16), dict(n=2000, seed=5), False),
+        ("32x32 lod seen", (32, 32), dict(n=2000, seed=7, lod=True), True),
+        ("32x32 lod", (32, 32), dict(n=2000, seed=7, lod=True), False),
+        ("8x128 seen", (8, 128), dict(n=2000, seed=9, lod=True), True),
+        ("16x16 dense saturated", (16, 16), dict(n=4000, seed=3, big=True),
+         True),
+        ("16x8 sticky", (16, 8), dict(n=600, seed=7, stacked=True), True),
+        ("16x16 sticky", (16, 16), dict(n=600, seed=7, stacked=True), True),
+    ]
+    sw, shh = 256, 192
+    for name, (tw, th), kw, want_seen in cases:
+        p, color, ts, kids = small_scene(dev, width=sw, height=shh, **kw)
+        bins, feats = blend_inputs(p, color, ts, kids, sw, shh, tw, th,
+                                   1 << 20, tight=not kw.get("stacked"))
+        if bool(bins.overflow):
+            raise AssertionError(f"{name}: max_dup overflow")
+        args = (feats, bins.sorted_gid, bins.tile_starts, bins.tile_counts)
+        opts = dict(width=sw, height=shh, tile_w=tw, tile_h=th,
+                    use_lod=ts is not None, want_seen=want_seen)
+        got = kernel(*args, **opts)
+        torch.cuda.synchronize()
+        ref = blend_forward_plain(*args, **opts)
+        max_err = max(max_err, compare(name, got, ref, SMALL_ATOL))
+        if "saturated" in name or "sticky" in name:
+            # saturated pixel: T stopped within one entry of t_eps
+            nc_sat = int(ref[2].flatten()[int(ref[1].argmin())])
+            log(f"    min final_t {float(ref[1].min()):.3e} at a pixel with "
+                f"n_contrib {nc_sat}")
+            if float(ref[1].min()) >= 2e-4:
+                raise AssertionError(f"{name}: no saturated pixel")
+            if "sticky" in name and nc_sat <= tw * th:
+                raise AssertionError(f"{name}: stop does not cross a batch")
+
+    width, height = 1920, 1080
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=352 * 1024, tight_binning=True)
+    scene = load_bench_scene()
+    n_g = scene["xyz"].shape[0]
+    means = torch.as_tensor(scene["xyz"], device=dev)
+    scales = torch.exp(torch.as_tensor(scene["log_scale"], device=dev))
+    quats = torch.as_tensor(scene["quat"], device=dev)
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+    opac = torch.sigmoid(torch.as_tensor(scene["opacity_logit"][:, 0],
+                                         device=dev))
+    shs = torch.cat([torch.as_tensor(scene["f_dc"], device=dev),
+                     torch.as_tensor(scene["f_rest"], device=dev)], dim=1)
+    valid = torch.ones((n_g,), dtype=torch.bool, device=dev)
+    bg = torch.zeros(3, device=dev)
+
+    def bench_camera(yaw_deg):
+        a = np.deg2rad(yaw_deg)
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        return make_camera(R, np.zeros(3), 1.2, 0.8, width, height,
+                           device=dev)
+
+    cam0 = bench_camera(0.0)
+
+    def project_and_color(cam):
+        cov6 = gaussian_math.compute_cov3d(scales, quats)
+        p = gaussian_math.project_gaussians(
+            means, cov6, opac, cam.world_view, cam.full_proj, width, height,
+            cam.focal_x, cam.focal_y, cam.tan_fovx, cam.tan_fovy,
+            dilation=cfg.dilation, near=cfg.near, valid_in=valid)
+        return p, sh_ops.sh_color(3, shs, means, cam.campos)
+
+    p0, color0 = project_and_color(cam0)
+    bins0, feats0 = blend_inputs(p0, color0, None, None, width, height, 32,
+                                 32, cfg.max_dup, tight=True)
+    frame_args = (feats0, bins0.sorted_gid, bins0.tile_starts,
+                  bins0.tile_counts)
+    frame_opts = dict(width=width, height=height, tile_w=32, tile_h=32)
+    got = kernel(*frame_args, **frame_opts)
+    torch.cuda.synchronize()
+    ref = blend_forward_plain(*frame_args, **frame_opts)
+    max_err = max(max_err, compare("1080p bench frame", got, ref,
+                                   FRAME_ATOL, FRAME_NC_SHARE))
+
+    # kernel, plain version and bound at the bench frame
+    kernel_ms = cuda_time_ms(lambda: kernel(*frame_args, **frame_opts), 20,
+                             warmup=3)
+    plain_ms = cuda_time_ms(lambda: blend_forward_plain(*frame_args,
+                                                        **frame_opts), 3)
+    evaluated, applied = work_of_frame(feats0, bins0, width, height, 32, 32,
+                                       cfg.t_eps, cfg.alpha_min)
+    num_dup = int(bins0.num_dup)
+    n_tiles = bins0.tile_starts.numel()
+    bytes_moved = (n_g * 12 * 4 + num_dup * 4 + 2 * n_tiles * 4
+                   + width * height * (4 * 4 + 4 + 4))
+    ops = OPS_EVAL * evaluated + OPS_APPLY * applied
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  bench frame: {num_dup} entries, {evaluated} evaluated and "
+        f"{applied} applied (entry, pixel) pairs, {ops:.4e} f32 ops, "
+        f"{bytes_moved} bytes")
+    log(f"  blend_forward kernel {kernel_ms:.4f} ms, plain version "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
+        f"{t_bytes:.4f} ms, ops {t_ops:.4f} ms) [{smi}]")
+
+    # ---- 3. flat serving: the main path ---------------------------------
+    log("[3] flat serving: 8 requests, render_arrays 1920x1080, "
+        f"{n_g} Gaussians, SH 3")
+    cams = [bench_camera(a) for a in np.linspace(-3.5, 3.5, 8)]
+
+    def serve(cam):
+        with torch.no_grad():
+            return render.render_arrays(
+                means, scales, quats, opac, shs, valid, cam.world_view,
+                cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy, bg,
+                sh_degree=3, width=width, height=height, cfg=cfg)
+
+    kernel.launches = 0
+    outs = [serve(cam) for cam in cams]
+    torch.cuda.synchronize()
+    flat_launches = kernel.launches
+    for i, out in enumerate(outs):
+        if bool(out.truncated) or not bool(torch.isfinite(out.image).all()):
+            raise AssertionError(f"request {i}: truncated or non-finite")
+        if tuple(out.image.shape) != (3, height, width):
+            raise AssertionError(f"request {i}: image {tuple(out.image.shape)}")
+    log(f"  8 requests untruncated and finite; entries per request "
+        f"{[int(o.n_dup) for o in outs]}; kernel launches {flat_launches}")
+    if flat_launches != len(cams):
+        raise AssertionError(f"{flat_launches} kernel launches for "
+                             f"{len(cams)} requests")
+    del outs
+
+    frame_ms = []
+    for _ in range(2):                                    # warm-up
+        serve(cams[0])
+    for cam in cams * 2:
+        frame_ms.append(cuda_time_ms(lambda: serve(cam), 1, warmup=0))
+    host = []
+    for cam in cams:
+        t0 = time.perf_counter()
+        serve(cam)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    proj_ms = cuda_time_ms(lambda: project_and_color(cam0), 10)
+    bin_ms = cuda_time_ms(lambda: bin_gaussians(
+        p0.xy, p0.depth, p0.radius, p0.valid, width, height, 32, 32,
+        cfg.max_dup, ext=p0.ext, reff2=p0.reff2), 10)
+    blend_ms = cuda_time_ms(lambda: rasterize_tiles(
+        bins0, p0.xy, p0.conic, p0.opacity, color0,
+        1.0 / torch.clamp_min(p0.depth, 1e-6), bg, width=width,
+        height=height, tile_w=32, tile_h=32), 10)
+    log(f"  frame median {statistics.median(frame_ms):.3f} ms on the card "
+        f"(CUDA events, {len(frame_ms)} frames), host wall median "
+        f"{statistics.median(host):.3f} ms")
+    log(f"  split: project+SH {proj_ms:.3f} ms, binning {bin_ms:.3f} ms, "
+        f"blend {blend_ms:.3f} ms (kernel {kernel_ms:.3f} ms) [{smi}]")
+
+    # ---- 4. LOD serving ------------------------------------------------
+    log("[4] LOD serving: oracle hierarchy + 100k skybox, render_lod 1080p")
+    d = load_dhier(os.path.join(ROOT, "tests", "fixtures", "oracle",
+                                "hierarchy.dhier.gz"))
+    g = d.pos.shape[0]
+    scene_radius = float(np.linalg.norm(d.pos, axis=1).max())
+    state = create_from_dhier(d, capacity=g + 100_000, skybox_num=100_000,
+                              scene_radius=scene_radius, device=dev)
+    act = gm.activate(state)
+    # 16 units in front of the tree's near face, so the three granularities
+    # cut it at different depths (the whole 12-unit tree stays in view)
+    lod_cam = make_camera(np.eye(3), np.array([0.0, 0.0, 16.0]), 1.2, 0.8,
+                          width, height, device=dev)
+    budget = 2048
+    lod_cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                               max_dup=1 << 21, tight_binning=True)
+
+    def serve_lod(tau, cfg_):
+        target = render.tau_to_threshold(tau, lod_cam.tan_fovx, width)
+        with torch.no_grad():
+            return render.render_lod(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                state.nodes, state.alive, lod_cam.world_view,
+                lod_cam.full_proj, lod_cam.campos, lod_cam.tan_fovx,
+                lod_cam.tan_fovy, bg, target,
+                sh_degree=d.sh_degree, width=width, height=height,
+                budget=budget, n_skybox=state.n_skybox, cfg=cfg_, k_max=8192)
+
+    taus = (0.0, 3.0, 15.0)
+    kernel.launches = 0
+    lod_out = [serve_lod(tau, lod_cfg) for tau in taus]
+    torch.cuda.synchronize()
+    lod_launches = kernel.launches
+    n_sel = [int(n) for _, n in lod_out]
+    for tau, (out, n) in zip(taus, lod_out):
+        if bool(out.truncated) or not bool(torch.isfinite(out.image).all()):
+            raise AssertionError(f"LOD tau {tau}: truncated or non-finite")
+        log(f"  tau {tau:4.1f}: n_selected {int(n)} of {g} nodes, entries "
+            f"{int(out.n_dup)}, image mean {float(out.image.mean()):.4f}")
+    if lod_launches != len(taus) or not n_sel[0] >= n_sel[1] >= n_sel[2] > 0:
+        raise AssertionError(f"LOD: launches {lod_launches}, n_selected "
+                             f"{n_sel}")
+    lod_ms = {tau: cuda_time_ms(lambda: serve_lod(tau, lod_cfg), 5)
+              for tau in taus}
+    log("  frame median " + ", ".join(f"tau {t}: {ms:.3f} ms"
+                                      for t, ms in lod_ms.items())
+        + f" [{smi}]")
+    plain_cfg = RasterizerConfig(backend="xla", tile_w=32, tile_h=32,
+                                 max_dup=1 << 22)
+    plain_out, plain_n = serve_lod(3.0, plain_cfg)
+    lod_err = float((plain_out.image - lod_out[1][0].image).abs().max())
+    log(f"  tau 3 vs plain (xla) path: max|d image| {lod_err:.3e}, "
+        f"n_selected {int(plain_n)} vs {n_sel[1]}, plain truncated "
+        f"{bool(plain_out.truncated)}")
+    if (lod_err > FRAME_ATOL or int(plain_n) != n_sel[1]
+            or bool(plain_out.truncated)):
+        raise AssertionError("LOD render disagrees with the plain path")
+    max_err = max(max_err, lod_err)
+
+    # ---- 5. kernel table -------------------------------------------------
+    log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": [{
+        "name": "blend_forward",
+        "route": "cuda",
+        "source": "hlod_gaussians_torch/csrc/blend_forward.cu",
+        "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
+        "launches": flat_launches + lod_launches,
+        "launches_by_path": {"flat": flat_launches, "lod": lod_launches},
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Device-time profile of the PyTorch port's serving frames on one GPU.
+
+    python3 scripts/torch_frame_profile.py [--frames 8]
+
+Serves the flat 1080p bench request (render_arrays, 100k Gaussians, SH 3,
+32x32 tiles, tight binning) and the tau-3 LOD request of chip_smoke.py
+under torch.profiler and prints, per path: the CUDA-event time per frame,
+the host wall time per frame, the device busy time (union of CUDA kernel
+intervals), the busy share of the CUDA-event window, kernel launches per
+frame, and the kernels with the most device time. Needs a CUDA device.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def union_us(intervals):
+    total, end = 0.0, -1e30
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile(name, serve, frames):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(3):
+        serve()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(frames):
+            serve()
+        b.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    window_ms = a.elapsed_time(b)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = union_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels]) / 1e3
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    print(f"{name}: {frames} frames, CUDA-event {window_ms / frames:.3f} "
+          f"ms/frame, host wall {host_ms / frames:.3f} ms/frame", flush=True)
+    if not kernels:
+        print(f"{name}: device busy time not measured (the profiler "
+              "recorded no CUDA kernels)")
+        return
+    print(f"{name}: device busy {busy_ms / frames:.3f} ms/frame = "
+          f"{busy_ms / window_ms:.3f} of the window (idle "
+          f"{1 - busy_ms / window_ms:.3f}); {len(kernels) / frames:.1f} "
+          "kernel launches per frame")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms / frames:8.4f} ms/frame  {k[:110]}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=8)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from chip_smoke import load_bench_scene
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.data.dhier import load_dhier
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train.post import create_from_dhier
+    from hlod_gaussians_torch.utils.camera import make_camera
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, f"torch {torch.__version__}", flush=True)
+    dev = torch.device("cuda")
+    width, height = 1920, 1080
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=352 * 1024, tight_binning=True)
+    s = load_bench_scene()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    means, scales = t(s["xyz"]), torch.exp(t(s["log_scale"]))
+    quats = t(s["quat"])
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+    opac = torch.sigmoid(t(s["opacity_logit"][:, 0]))
+    shs = torch.cat([t(s["f_dc"]), t(s["f_rest"])], dim=1)
+    valid = torch.ones((means.shape[0],), dtype=torch.bool, device=dev)
+    bg = torch.zeros(3, device=dev)
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, width, height,
+                      device=dev)
+
+    def serve_flat():
+        with torch.no_grad():
+            return render.render_arrays(
+                means, scales, quats, opac, shs, valid, cam.world_view,
+                cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy, bg,
+                sh_degree=3, width=width, height=height, cfg=cfg)
+
+    profile("flat", serve_flat, args.frames)
+
+    d = load_dhier(os.path.join(ROOT, "tests", "fixtures", "oracle",
+                                "hierarchy.dhier.gz"))
+    g = d.pos.shape[0]
+    state = create_from_dhier(
+        d, capacity=g + 100_000, skybox_num=100_000,
+        scene_radius=float(np.linalg.norm(d.pos, axis=1).max()), device=dev)
+    act = gm.activate(state)
+    lod_cam = make_camera(np.eye(3), np.array([0.0, 0.0, 16.0]), 1.2, 0.8,
+                          width, height, device=dev)
+    lod_cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                               max_dup=1 << 21, tight_binning=True)
+    target = render.tau_to_threshold(3.0, lod_cam.tan_fovx, width)
+
+    def serve_lod():
+        with torch.no_grad():
+            return render.render_lod(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                state.nodes, state.alive, lod_cam.world_view,
+                lod_cam.full_proj, lod_cam.campos, lod_cam.tan_fovx,
+                lod_cam.tan_fovy, bg, target, sh_degree=d.sh_degree,
+                width=width, height=height, budget=2048,
+                n_skybox=state.n_skybox, cfg=lod_cfg)
+
+    profile("lod tau 3", serve_lod, args.frames)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
