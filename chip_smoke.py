@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (hlod_gaussians_torch) on one NVIDIA
-GPU: builds the blend kernel, holds it to its plain PyTorch version, serves
-flat and hierarchical-LOD renders through the public entry points, and
-prints the kernel table.
+GPU: builds the blend kernels, holds each to its plain PyTorch version,
+serves flat and hierarchical-LOD renders and takes flat training steps
+through the public entry points, and prints the kernel table.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Phases (any failure raises and exits non-zero):
-  1. card name and power limit; build the kernel with nvcc (build seconds).
-  2. kernel vs plain version on small scenes (LOD on/off, seen, 16x16,
-     32x32, 16x8 and 8x128 tiles, sticky early stop across entry batches,
-     dense overlap with saturated pixels): images, inverse depth and final T
-     to atol 2e-5, n_contrib and seen exact; then one 1080p bench frame:
-     image to atol 1e-4, share of pixels whose n_contrib differs <= 1e-4.
+  1. card name and power limit; build both kernels with nvcc, one process
+     per source, started together (build seconds).
+  2. kernel B1 (blend forward) vs its plain version on small scenes (LOD
+     on/off, seen, 16x16, 32x32, 16x8 and 8x128 tiles, sticky early stop
+     across entry batches, dense overlap with saturated pixels): images,
+     inverse depth and final T to atol 2e-5, n_contrib and seen exact; then
+     one 1080p bench frame: image to atol 1e-4, share of pixels whose
+     n_contrib differs <= 1e-4.
+  2b. kernel B2 (blend backward) vs its plain version on the same small
+     scenes and the 1080p bench frame, on B1's final T and n_contrib and
+     seeded random cotangents: per-entry gradients to atol 3e-4 times the
+     largest plain magnitude; two launches bitwise equal.
   3. flat serving: 8 requests through render.render_arrays at 1920x1080 on
      the 100k-Gaussian SH-3 bench scene (scripts/bench_scene.py), 32x32
      tiles, tight binning, max_dup 352*1024; every request untruncated and
-     finite, one kernel launch each; per-frame median and the stage split.
+     finite, one B1 launch each; per-frame median and the stage split.
   4. LOD serving: the oracle hierarchy (tests/fixtures/oracle/
      hierarchy.dhier.gz) with a 100k-point skybox, render.render_lod at
      1080p for tau 0, 3 and 15; one view against the plain (xla) path.
-  5. the {"kernels": [...]} line, then the device line.
+  5. training: one train.flat.train_step on a small scene on the card
+     against the same step on the CPU (plain versions); then 8 steps at
+     full width (the bench scene perturbed, fit toward its own 1080p
+     render, SH 3, the serving config): every step untruncated with a
+     finite loss and exactly one B1 and one B2 launch, the last loss below
+     the first; step median and the forward / backward / Adam split.
+  6. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -48,6 +61,15 @@ PEAK_F32_S = 67e12
 # alpha_min test, 1-alpha, T*(1-alpha) and the t_eps test; per applied pair
 # also w and four FMAs (the bench frame has no LOD)
 OPS_EVAL, OPS_APPLY = 18, 9
+# kernel B2 (csrc/blend_backward.cu): per needed (entry, pixel) pair, i.e.
+# every entry before the pixel's n_contrib, the n_contrib test, dx, dy,
+# power (7), the power test, exp, op*G, min and the alpha_min test; per
+# applied pair 1-alpha, the T division, contrib, cdotg (4), dL/dalpha (4),
+# the suffix update, the clip test, dpower, u, v, the three second moments
+# and the four colour products (the warp reductions are not counted)
+B2_OPS_NEED, B2_OPS_APPLY = 14, 24
+GRAD_SCALED_ATOL = 3e-4
+TRAIN_STEPS = 8
 
 
 def log(*a):
@@ -190,6 +212,187 @@ def work_of_frame(feats, bins, width, height, tile_w, tile_h, t_eps,
     return int(evaluated), int(applied)
 
 
+def check_backward(name, args, opts, fwd, gen):
+    """Kernel B2 against its plain version on B1's final T and n_contrib
+    (fwd) and seeded random cotangents; two launches must give the same
+    bits. Returns (max abs error, the B2 inputs)."""
+    import torch
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_backward_plain
+    _, final_t, n_contrib, _ = fwd
+    h, w = final_t.shape
+    g_img4 = torch.randn((4, h, w), generator=gen, device=final_t.device)
+    g_ft = torch.randn((h, w), generator=gen, device=final_t.device)
+    bargs = tuple(args) + (final_t, n_contrib, g_img4, g_ft)
+    bopts = {k: opts[k] for k in ("width", "height", "tile_w", "tile_h",
+                                  "use_lod")}
+    got = rasterize_cuda.blend_backward(*bargs, **bopts)
+    again = rasterize_cuda.blend_backward(*bargs, **bopts)
+    torch.cuda.synchronize()
+    ref = blend_backward_plain(*bargs, **bopts)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    same = torch.equal(got, again)
+    log(f"  {name}: max|d egrads| {err:.3e} of max|egrads| {scale:.3e}"
+        f"  ({err / max(scale, 1e-30):.2e} scaled)  bitwise repeat {same}")
+    if not (scale > 0 and err <= GRAD_SCALED_ATOL * scale and same
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"kernel B2 disagrees with its plain version: "
+                             f"{name}")
+    return err, (bargs, bopts)
+
+
+def small_train_state(dev, n=64, cap=96, seed=0):
+    """A capacity-padded SH-1 state of n Gaussians 4 units in front of the
+    camera (the JAX package's flat-training test scene, test_train_flat.py)."""
+    from hlod_gaussians_torch import convert
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[:n] = rng.normal(size=(n, 3)) * 0.5
+    xyz[:n, 2] += 4.0
+    f_dc = np.zeros((cap, 1, 3), np.float32)
+    f_dc[:n, 0] = (rng.random((n, 3)) - 0.5) / 0.28209479177387814 + 0.3
+    quat = np.zeros((cap, 4), np.float32)
+    quat[:, 0] = 1.0
+    arrays = dict(
+        xyz=xyz, f_dc=f_dc, f_rest=np.zeros((cap, 3, 3), np.float32),
+        log_scale=np.full((cap, 3), np.log(0.12), np.float32), quat=quat,
+        opacity_logit=np.zeros((cap, 1), np.float32),
+        exposure=np.eye(3, 4, dtype=np.float32)[None],
+        alive=np.arange(cap) < n, nodes=np.full((cap, 6), -1, np.int32))
+    return convert.state_from_numpy(arrays, n_skybox=0, device=dev)
+
+
+def check_small_train_step(dev):
+    """One train_step on the card (B1, B2, the CUDA reduction) against the
+    same step on the CPU (plain versions): Adam moments (m = 0.1 g from zero
+    moments) scaled to 3e-4, parameters to 1e-6 where |g| > 1e-3 max|g| and
+    within 2 lr elsewhere, visibility statistics exactly."""
+    import torch
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.config import (OptimizationConfig,
+                                             RasterizerConfig)
+    from hlod_gaussians_torch.train import flat
+    from hlod_gaussians_torch.utils.camera import make_camera
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=4096)
+    gt = np.random.default_rng(2).uniform(0, 1, (3, 64, 64)).astype(
+        np.float32)
+    new = {}
+    for d in (torch.device("cpu"), dev):
+        cam = make_camera(np.eye(3), np.zeros(3), 0.8, 0.8, 64, 64, device=d)
+        ts = flat.init_flat_train(small_train_state(d))
+        new[d.type], _ = flat.train_step(
+            ts, cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+            cam.tan_fovy, torch.as_tensor(gt, device=d),
+            torch.tensor([0.1, 0.2, 0.3], device=d), exposure_idx=0,
+            scene_extent=5.0, opt=OptimizationConfig(), cfg=cfg, width=64,
+            height=64, sh_degree=1)
+    ref, got = new["cpu"], new[dev.type]
+    lrs = optim.param_lrs(OptimizationConfig(), 0, 5.0)
+    worst = 0.0
+    for k, m_ref in ref.adam.m.items():
+        for part in ("m", "v"):
+            r = getattr(ref.adam, part)[k]
+            err = float((getattr(got.adam, part)[k].cpu() - r).abs().max())
+            worst = max(worst, err / max(float(r.abs().max()), 1e-30))
+        gabs = m_ref.abs()
+        big = gabs > 1e-3 * gabs.max()
+        diff = (getattr(got.gaussians, k).cpu()
+                - getattr(ref.gaussians, k)).abs()
+        if (diff[big].max() > 1e-6 if big.any() else False) or \
+                diff.max() > 2 * lrs[k] + 1e-6:
+            raise AssertionError(f"small train step: parameter {k} differs "
+                                 "between the card and the CPU")
+    same_stats = (torch.equal(got.denom.cpu(), ref.denom)
+                  and torch.equal(got.max_radii.cpu(), ref.max_radii))
+    accum_err = float((got.xyz_grad_accum.cpu() - ref.xyz_grad_accum)
+                      .abs().max()) / float(ref.xyz_grad_accum.abs().max())
+    log(f"  small train step, card vs CPU: Adam moments {worst:.2e} scaled, "
+        f"xyz_grad_accum {accum_err:.2e} scaled, denom/max_radii equal "
+        f"{same_stats}, {int(ref.denom.sum())} visible rows")
+    if not (worst <= GRAD_SCALED_ATOL and accum_err <= GRAD_SCALED_ATOL
+            and same_stats and int(ref.denom.sum()) > 0):
+        raise AssertionError("small train step differs between the card and "
+                             "the CPU")
+
+
+def train_phase(ts, cam_args, gt, bg, cfg, width, height, extent=8.0):
+    """TRAIN_STEPS train_step calls, each checked (untruncated, finite loss,
+    exactly one B1 and one B2 launch), then the step's split timed on the
+    final state: forward (render + loss), backward, Adam. `extent`: the
+    bench cloud is N(0, 2) around z = 8, a radius of ~8 units."""
+    import torch
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.config import OptimizationConfig
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.train import flat
+    b1, b2 = rasterize_cuda.blend_forward, rasterize_cuda.blend_backward
+    opt = OptimizationConfig()
+    step_kw = dict(exposure_idx=0, scene_extent=extent, opt=opt, cfg=cfg,
+                   width=width, height=height, sh_degree=3)
+    losses, step_ms, host_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = (b1.launches, b2.launches)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        ts, aux = flat.train_step(ts, *cam_args, gt, bg, **step_kw)
+        b.record()
+        b.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(aux.loss))
+        delta = (b1.launches - before[0], b2.launches - before[1])
+        if (bool(aux.truncated) or not np.isfinite(losses[-1])
+                or delta != (1, 1)):
+            raise AssertionError(f"train step {i}: truncated "
+                                 f"{bool(aux.truncated)}, loss {losses[-1]}, "
+                                 f"(B1, B2) launches {delta}")
+    launches = (b1.launches, b2.launches)      # before the split's runs
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    for k, v in ts.gaussians.params().items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite parameter {k} after training")
+
+    g = ts.gaussians
+    n = g.capacity
+
+    def forward():
+        params = {k: p.detach().requires_grad_(True)
+                  for k, p in g.params().items()}
+        xy_off = torch.zeros((n, 2), device=g.xyz.device, requires_grad=True)
+        loss, (out, *_) = flat.step_loss(
+            g, params, xy_off, *cam_args, gt, bg, exposure_idx=0, opt=opt,
+            cfg=cfg, width=width, height=height, k_max=1024, sh_degree=3,
+            use_exposure=True, antialiasing=False)
+        return loss, params, xy_off, out
+
+    fwd_ms = cuda_time_ms(forward, 5)
+    bwd_times, adam_times = [], []
+    lrs = optim.param_lrs(opt, ts.step, extent)
+    for _ in range(5):
+        loss, params, xy_off, out = forward()
+        torch.cuda.synchronize()
+        grads = {}
+
+        def backward():
+            got = torch.autograd.grad(loss, list(params.values()) + [xy_off])
+            grads.update(zip(params, got))
+        bwd_times.append(cuda_time_ms(backward, 1, warmup=0))
+        detached = {k: p.detach() for k, p in params.items()}
+        adam_times.append(cuda_time_ms(lambda: optim.sparse_adam_update(
+            detached, grads, ts.adam, lrs, visible=out.visible), 1,
+            warmup=0))
+    return dict(launches=launches, losses=[round(x, 6) for x in losses],
+                step_ms=step_ms,
+                host_ms=host_ms, n_visible=int(aux.n_visible), fwd_ms=fwd_ms,
+                bwd_ms=statistics.median(bwd_times),
+                adam_ms=statistics.median(adam_times))
+
+
 def main():
     import torch
 
@@ -198,7 +401,7 @@ def main():
               "test runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch import convert, render
     from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.data.dhier import load_dhier
     from hlod_gaussians_torch.models import gaussians as gm
@@ -206,7 +409,10 @@ def main():
     from hlod_gaussians_torch.ops import rasterize_cuda
     from hlod_gaussians_torch.ops.binning import bin_gaussians
     from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
-    from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
+    from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
+                                                        blend_forward_plain,
+                                                        tile_image)
+    from hlod_gaussians_torch.train import flat
     from hlod_gaussians_torch.train.post import create_from_dhier
     from hlod_gaussians_torch.utils.camera import make_camera
 
@@ -214,6 +420,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
     t_start = time.perf_counter()
 
     # ---- 1. card and build ---------------------------------------------
@@ -222,13 +429,16 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib_path, build_log = rasterize_cuda.build()
-    rasterize_cuda._library()
-    log(f"[1] built {os.path.relpath(lib_path, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("    ptxas: " + line.strip())
+    built = rasterize_cuda.build()
+    for name in built:
+        rasterize_cuda._library(name)
+    log("[1] built " + ", ".join(os.path.relpath(path, ROOT)
+                                 for path, _ in built.values())
+        + f" in {time.perf_counter() - t0:.2f} s")
+    for name, (_, build_log) in built.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas {name}: " + line.strip())
 
     # ---- 2. kernel vs plain --------------------------------------------
     log("[2] kernel vs plain version")
@@ -246,6 +456,7 @@ def main():
         ("16x16 sticky", (16, 16), dict(n=600, seed=7, stacked=True), True),
     ]
     sw, shh = 256, 192
+    b2_cases = {}      # B2's cases: the scenes above, once each
     for name, (tw, th), kw, want_seen in cases:
         p, color, ts, kids = small_scene(dev, width=sw, height=shh, **kw)
         bins, feats = blend_inputs(p, color, ts, kids, sw, shh, tw, th,
@@ -268,6 +479,7 @@ def main():
                 raise AssertionError(f"{name}: no saturated pixel")
             if "sticky" in name and nc_sat <= tw * th:
                 raise AssertionError(f"{name}: stop does not cross a batch")
+        b2_cases.setdefault(name.replace(" seen", ""), (args, opts, got))
 
     width, height = 1920, 1080
     cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
@@ -337,6 +549,42 @@ def main():
         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
         f"{t_bytes:.4f} ms, ops {t_ops:.4f} ms) [{smi}]")
 
+    # ---- 2b. kernel B2 vs plain -----------------------------------------
+    log("[2b] kernel B2 (blend backward) vs plain version")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b2_err = 0.0
+    for name, (args, opts, fwd) in b2_cases.items():
+        b2_err = max(b2_err, check_backward(name, args, opts, fwd, gen)[0])
+    err, (b2_args, b2_opts) = check_backward(
+        "1080p bench frame", frame_args, dict(frame_opts, use_lod=False),
+        got, gen)
+    b2_err = max(b2_err, err)
+    b2_ms = cuda_time_ms(lambda: kernel_b2(*b2_args, **b2_opts), 20,
+                         warmup=3)
+    b2_plain_ms = cuda_time_ms(lambda: blend_backward_plain(*b2_args,
+                                                            **b2_opts), 3)
+    # the work these inputs need: every entry before a pixel's n_contrib
+    # decides whether it was applied, and the applied pairs (the forward's)
+    # carry the gradient; the kernel walks every pixel of a tile down from
+    # the tile's largest n_contrib
+    needed = int(got[2].sum())
+    walked = int(tile_image(got[2], width, height, 32, 32).amax(1).sum()
+                 ) * 32 * 32
+    b2_bytes = (n_g * 12 * 4 + num_dup * 4 + 2 * n_tiles * 4
+                + width * height * (4 + 4 + 4 * 4 + 4)
+                + bins0.sorted_gid.numel() * 12 * 4)
+    b2_ops = B2_OPS_NEED * needed + B2_OPS_APPLY * applied
+    b2_t_bytes = b2_bytes / PEAK_BYTES_S * 1e3
+    b2_t_ops = b2_ops / PEAK_F32_S * 1e3
+    b2_bound_ms = max(b2_t_bytes, b2_t_ops)
+    b2_bound_by = "bytes" if b2_t_bytes >= b2_t_ops else "operations"
+    log(f"  bench frame: {needed} needed, {applied} applied and {walked} "
+        f"walked (entry, pixel) pairs, {b2_ops:.4e} f32 ops, {b2_bytes} "
+        "bytes")
+    log(f"  blend_backward kernel {b2_ms:.4f} ms, plain version "
+        f"{b2_plain_ms:.2f} ms, bound {b2_bound_ms:.4f} ms ({b2_bound_by}; "
+        f"bytes {b2_t_bytes:.4f} ms, ops {b2_t_ops:.4f} ms) [{smi}]")
+
     # ---- 3. flat serving: the main path ---------------------------------
     log("[3] flat serving: 8 requests, render_arrays 1920x1080, "
         f"{n_g} Gaussians, SH 3")
@@ -349,10 +597,10 @@ def main():
                 cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy, bg,
                 sh_degree=3, width=width, height=height, cfg=cfg)
 
-    kernel.launches = 0
+    kernel.launches = kernel_b2.launches = 0
     outs = [serve(cam) for cam in cams]
     torch.cuda.synchronize()
-    flat_launches = kernel.launches
+    flat_launches, flat_b2 = kernel.launches, kernel_b2.launches
     for i, out in enumerate(outs):
         if bool(out.truncated) or not bool(torch.isfinite(out.image).all()):
             raise AssertionError(f"request {i}: truncated or non-finite")
@@ -360,9 +608,9 @@ def main():
             raise AssertionError(f"request {i}: image {tuple(out.image.shape)}")
     log(f"  8 requests untruncated and finite; entries per request "
         f"{[int(o.n_dup) for o in outs]}; kernel launches {flat_launches}")
-    if flat_launches != len(cams):
-        raise AssertionError(f"{flat_launches} kernel launches for "
-                             f"{len(cams)} requests")
+    if flat_launches != len(cams) or flat_b2 != 0:
+        raise AssertionError(f"{flat_launches} B1 and {flat_b2} B2 launches "
+                             f"for {len(cams)} requests")
     del outs
 
     frame_ms = []
@@ -419,19 +667,20 @@ def main():
                 budget=budget, n_skybox=state.n_skybox, cfg=cfg_, k_max=8192)
 
     taus = (0.0, 3.0, 15.0)
-    kernel.launches = 0
+    kernel.launches = kernel_b2.launches = 0
     lod_out = [serve_lod(tau, lod_cfg) for tau in taus]
     torch.cuda.synchronize()
-    lod_launches = kernel.launches
+    lod_launches, lod_b2 = kernel.launches, kernel_b2.launches
     n_sel = [int(n) for _, n in lod_out]
     for tau, (out, n) in zip(taus, lod_out):
         if bool(out.truncated) or not bool(torch.isfinite(out.image).all()):
             raise AssertionError(f"LOD tau {tau}: truncated or non-finite")
         log(f"  tau {tau:4.1f}: n_selected {int(n)} of {g} nodes, entries "
             f"{int(out.n_dup)}, image mean {float(out.image.mean()):.4f}")
-    if lod_launches != len(taus) or not n_sel[0] >= n_sel[1] >= n_sel[2] > 0:
-        raise AssertionError(f"LOD: launches {lod_launches}, n_selected "
-                             f"{n_sel}")
+    if (lod_launches != len(taus) or lod_b2 != 0
+            or not n_sel[0] >= n_sel[1] >= n_sel[2] > 0):
+        raise AssertionError(f"LOD: launches {lod_launches} (B2 {lod_b2}), "
+                             f"n_selected {n_sel}")
     lod_ms = {tau: cuda_time_ms(lambda: serve_lod(tau, lod_cfg), 5)
               for tau in taus}
     log("  frame median " + ", ".join(f"tau {t}: {ms:.3f} ms"
@@ -449,20 +698,70 @@ def main():
         raise AssertionError("LOD render disagrees with the plain path")
     max_err = max(max_err, lod_err)
 
-    # ---- 5. kernel table -------------------------------------------------
-    log(f"[5] done in {time.perf_counter() - t_start:.1f} s")
+    del lod_out, plain_out, state, act
+
+    # ---- 5. training ---------------------------------------------------
+    log("[5] training: train.flat.train_step")
+    check_small_train_step(dev)
+    log(f"  full width: {TRAIN_STEPS} steps at 1920x1080 on the bench scene "
+        f"({n_g} Gaussians, SH 3), f_dc + 0.3 and xyz jitter, fit toward "
+        "the unperturbed render")
+    arrays = dict(scene, exposure=np.eye(3, 4, dtype=np.float32)[None],
+                  alive=np.ones(n_g, bool),
+                  nodes=np.full((n_g, 6), -1, np.int32))
+    truth = convert.state_from_numpy(arrays, n_skybox=0, device=dev)
+    gt = serve(cam0).image
+    rng = np.random.default_rng(7)
+    pert = dataclasses.replace(
+        truth, f_dc=truth.f_dc + 0.3,
+        xyz=truth.xyz + torch.as_tensor(
+            rng.normal(size=(n_g, 3)).astype(np.float32) * 0.01, device=dev))
+    del truth
+    ts = flat.init_flat_train(pert)
+    cam_args = (cam0.world_view, cam0.full_proj, cam0.campos, cam0.tan_fovx,
+                cam0.tan_fovy)
+    kernel.launches = kernel_b2.launches = 0
+    tr = train_phase(ts, cam_args, gt, bg, cfg, width, height)
+    train_launches, train_b2 = tr["launches"]
+    log(f"  losses {tr['losses']}; {tr['n_visible']} visible; launches B1 "
+        f"{train_launches}, B2 {train_b2}")
+    log(f"  step median {statistics.median(tr['step_ms']):.3f} ms on the "
+        f"card (CUDA events, {TRAIN_STEPS} steps), host wall median "
+        f"{statistics.median(tr['host_ms']):.3f} ms")
+    log(f"  split: forward (render + loss) {tr['fwd_ms']:.3f} ms, backward "
+        f"{tr['bwd_ms']:.3f} ms (B2 kernel {b2_ms:.3f} ms), Adam "
+        f"{tr['adam_ms']:.3f} ms [{smi}]")
+
+    # ---- 6. kernel table -------------------------------------------------
+    log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
+    log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_forward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
-        "launches": flat_launches + lod_launches,
-        "launches_by_path": {"flat": flat_launches, "lod": lod_launches},
+        "launches": flat_launches + lod_launches + train_launches,
+        "launches_by_path": {"flat": flat_launches, "lod": lod_launches,
+                             "train": train_launches},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "blend_backward",
+        "route": "cuda",
+        "source": "hlod_gaussians_torch/csrc/blend_backward.cu",
+        "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
+        "launches": flat_b2 + lod_b2 + train_b2,
+        "launches_by_path": {"flat": flat_b2, "lod": lod_b2,
+                             "train": train_b2},
+        "max_abs_err": b2_err,
+        "ms": b2_ms,
+        "plain_ms": b2_plain_ms,
+        "bound_ms": b2_bound_ms,
+        "bound_by": b2_bound_by,
         "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {

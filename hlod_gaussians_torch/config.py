@@ -1,13 +1,43 @@
-"""Rasterizer configuration (port of hlod_gaussians_tpu/config.py:81-123).
+"""Training and rasterizer configuration (port of
+hlod_gaussians_tpu/config.py:50-123).
 
-Only `RasterizerConfig` is ported in this slice. The TPU-only `tpb` field
-(tiles per Pallas grid program) has no counterpart: the CUDA kernel runs one
-block per tile.
+`OptimizationConfig` and `RasterizerConfig` are ported so far. The TPU-only
+`tpb` field (tiles per Pallas grid program) has no counterpart: the CUDA
+kernels run one block per tile.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizationConfig:
+    """Training hyperparameters (reference arguments/__init__.py:156-185)."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00002
+    position_lr_final: float = 0.0000002
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    exposure_lr_init: float = 0.001
+    exposure_lr_final: float = 0.0001
+    exposure_lr_delay_steps: int = 5000
+    exposure_lr_delay_mult: float = 0.001
+    lambda_dssim: float = 0.2
+    densification_interval: int = 300
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.015
+    depth_l1_weight_init: float = 1.0
+    depth_l1_weight_final: float = 0.01
+    # As in the JAX package: no percent_dense (the fork's live densify
+    # criterion is grad * radii * opacity^0.2) and no MCMC terms.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +69,7 @@ class RasterizerConfig:
     dilation: float = 0.3
     # Cull Gaussians whose max scale exceeds this (forward.cu:351).
     big_limit: float = float("inf")
-    # Render-only: differentiating such a render raises. The render_lod
-    # entry point forces this on. (The kernel path has no backward yet, so
-    # every pallas-backend render is render-only until it does.)
+    # Render-only: differentiating a pallas-backend render made with it
+    # raises (its kernel B2 backward is refused). The render_lod entry point
+    # forces this on.
     inference: bool = False

@@ -65,6 +65,28 @@ class GaussianState:
     def sh_degree(self) -> int:
         return {1: 0, 4: 1, 9: 2, 16: 3}[1 + self.f_rest.shape[1]]
 
+    def num_alive(self):
+        return torch.sum(self.alive)
+
+    @property
+    def skybox_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.xyz.device) < self.n_skybox
+
+    @property
+    def protected_mask(self) -> torch.Tensor:
+        """Skybox + scaffold rows: never densified, pruned or shrunk."""
+        return (torch.arange(self.capacity, device=self.xyz.device)
+                < self.n_skybox + self.n_scaffold)
+
+    def params(self) -> dict:
+        """The trainable tensors as a dict (for grads and the optimizer)."""
+        return dict(xyz=self.xyz, f_dc=self.f_dc, f_rest=self.f_rest,
+                    log_scale=self.log_scale, quat=self.quat,
+                    opacity_logit=self.opacity_logit, exposure=self.exposure)
+
+    def replace_params(self, p: dict) -> "GaussianState":
+        return dataclasses.replace(self, **p)
+
 
 class Activated(NamedTuple):
     """Activated per-Gaussian quantities consumed by the renderer."""
@@ -94,6 +116,14 @@ def activate(state: GaussianState,
 
 def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))
+
+
+def scene_extent(cam_centers: np.ndarray) -> float:
+    """NeRF++-style scene extent: 1.1 x max distance from the average camera
+    center (reference getNerfppNorm, scene/dataset_readers.py:52-73)."""
+    center = cam_centers.mean(axis=0, keepdims=True)
+    dist = np.linalg.norm(cam_centers - center, axis=-1)
+    return float(dist.max() * 1.1)
 
 
 def empty_state(capacity: int, sh_degree: int = 3, n_exposures: int = 1,

@@ -1,5 +1,5 @@
 """Compute ops: spherical harmonics, quaternions, projection, binning,
-rasterization."""
+rasterization, image losses."""
 
 
 def gather_rows(tables, idx):

@@ -1,19 +1,24 @@
-"""Kernel B1 wrapper: the hand-written CUDA blend forward.
+"""Kernel wrappers: the hand-written CUDA blend forward (B1) and backward
+(B2).
 
-Replaces hlod_gaussians_tpu/ops/rasterize_pallas.py::blend_forward (the
-Pallas TPU kernel). The source is `hlod_gaussians_torch/csrc/blend_forward.cu`;
-its header note gives the design and what bounds it.
+B1 `blend_forward` replaces hlod_gaussians_tpu/ops/rasterize_pallas.py
+::blend_forward, B2 `blend_backward` replaces ::blend_backward (the Pallas
+TPU kernels). The sources are `hlod_gaussians_torch/csrc/blend_forward.cu`
+and `csrc/blend_backward.cu`; their header notes give the design and what
+bounds each.
 
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared -Xcompiler -fPIC` compiles the source into a shared library with a
+-shared -Xcompiler -fPIC` compiles each source into a shared library with a
 plain C launcher under `hlod_gaussians_torch/_build/`, named by a hash of
-the source and flags, and loads it with ctypes. Nothing is built or
-imported while this module is imported.
+that source and the flags, and loads it with ctypes. `build()` starts one
+nvcc per missing library, all at once. Nothing is built or imported while
+this module is imported.
 
-Dispatch: on CPU tensors `blend_forward` runs the plain version
-(`rasterize_xla.blend_forward_plain`); on CUDA tensors it launches the
-kernel on the current stream or raises. `blend_forward.launches` counts the
-kernel launches.
+Dispatch: on CPU tensors each wrapper runs its plain version
+(`rasterize_xla.blend_forward_plain` / `blend_backward_plain`); on CUDA
+tensors it launches the kernel on the current stream or raises.
+`blend_forward.launches` and `blend_backward.launches` count the kernel
+launches.
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ import torch
 
 from hlod_gaussians_torch.ops.binning import tile_grid
 from hlod_gaussians_torch.ops.rasterize_xla import (N_FEATS,
+                                                    blend_backward_plain,
                                                     blend_forward_plain)
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "blend_forward.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("blend_forward", "blend_backward")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,44 +56,72 @@ def _nvcc() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       "the CUDA blend kernel cannot be built")
+                       "the CUDA blend kernels cannot be built")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library if its hashed output is missing. Returns
-    (library path, compiler output — register and shared-memory use)."""
-    src = SOURCE.read_bytes()
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"blend_forward_{key}.so"
-    log_path = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, log_path.read_text() if log_path.exists() else ""
+    return BUILD_DIR / f"{name}_{key}.so"
+
+
+def build(names=tuple(SOURCES)) -> dict:
+    """Compile the kernel libraries whose hashed outputs are missing, one
+    nvcc process per source, all started together. Returns {name: (library
+    path, compiler output — register and shared-memory use)}."""
+    missing = [name for name in names if not _lib_path(name).exists()]
+    nvcc = _nvcc() if missing else None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    jobs = {}
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)        # atomic: concurrent builders agree
+        for name in missing:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name} "
+                              f"({proc.returncode}):\n{out}")
+                continue
+            lib = _lib_path(name)
+            lib.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib)        # atomic: concurrent builds agree
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, log_path.read_text()
+        for tmp, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    out = {}
+    for name in names:
+        log = _lib_path(name).with_suffix(".log")
+        out[name] = (_lib_path(name),
+                     log.read_text() if log.exists() else "")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build((name,))[name][0]))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.blend_forward_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f,
-                                         i, p, p, p, p, p]
-    lib.blend_forward_launch.restype = ctypes.c_int
-    lib.blend_forward_error_string.argtypes = [ctypes.c_int]
-    lib.blend_forward_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    if name == "blend_forward":
+        launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, i, p, p, p, p,
+                           p]
+    else:
+        launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p,
+                           p]
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -100,6 +135,16 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_entries(feats, sorted_gid, tile_starts, tile_counts, gw, gh):
+    n = feats.shape[0]
+    _check(feats, "feats", torch.float32, (n, N_FEATS))
+    if feats.data_ptr() % 16:
+        raise ValueError("feats must be 16-byte aligned (float4 row loads)")
+    _check(sorted_gid, "sorted_gid", torch.int32, (sorted_gid.shape[0],))
+    _check(tile_starts, "tile_starts", torch.int32, (gw * gh,))
+    _check(tile_counts, "tile_counts", torch.int32, (gw * gh,))
 
 
 def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
@@ -121,12 +166,7 @@ def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
     if not 0 < tile_w * tile_h <= 1024:
         raise ValueError(f"tile {tile_w}x{tile_h}: the kernel runs one thread "
                          "per pixel, so tile_w * tile_h must be in [1, 1024]")
-    _check(feats, "feats", torch.float32, (n, N_FEATS))
-    if feats.data_ptr() % 16:
-        raise ValueError("feats must be 16-byte aligned (float4 row loads)")
-    _check(sorted_gid, "sorted_gid", torch.int32, (sorted_gid.shape[0],))
-    _check(tile_starts, "tile_starts", torch.int32, (gw * gh,))
-    _check(tile_counts, "tile_counts", torch.int32, (gw * gh,))
+    _check_entries(feats, sorted_gid, tile_starts, tile_counts, gw, gh)
 
     dev = feats.device
     img4 = torch.empty((4, height, width), dtype=torch.float32, device=dev)
@@ -134,7 +174,7 @@ def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
     n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
     seen = (torch.zeros((n,), dtype=torch.uint8, device=dev)
             if want_seen else None)
-    lib = _library()
+    lib = _library("blend_forward")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.blend_forward_launch(
@@ -151,3 +191,52 @@ def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
 
 
 blend_forward.launches = 0
+
+
+def blend_backward(feats, sorted_gid, tile_starts, tile_counts, final_t,
+                   n_contrib, g_img4, g_final_t, *,
+                   width: int, height: int, tile_w: int, tile_h: int,
+                   alpha_min: float = 1.0 / 255.0, use_lod: bool = False):
+    """feats, sorted_gid, tile_starts, tile_counts as for blend_forward; its
+    final_t [H, W] and n_contrib [H, W] int32; cotangents g_img4 [4, H, W]
+    and g_final_t [H, W] -> per-entry gradients [max_dup, 12] float32. The
+    contract of rasterize_xla.blend_backward_plain."""
+    if feats.device.type == "cpu":
+        return blend_backward_plain(
+            feats, sorted_gid, tile_starts, tile_counts, final_t, n_contrib,
+            g_img4, g_final_t, width=width, height=height, tile_w=tile_w,
+            tile_h=tile_h, alpha_min=alpha_min, use_lod=use_lod)
+
+    gw, gh = tile_grid(width, height, tile_w, tile_h)
+    nthr = tile_w * tile_h
+    if not 0 < nthr <= 1024 or nthr % 32:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel runs one thread "
+                         "per pixel in whole warps, so tile_w * tile_h must "
+                         "be a multiple of 32 in [32, 1024]")
+    _check_entries(feats, sorted_gid, tile_starts, tile_counts, gw, gh)
+    _check(final_t, "final_t", torch.float32, (height, width))
+    _check(n_contrib, "n_contrib", torch.int32, (height, width))
+    _check(g_img4, "g_img4", torch.float32, (4, height, width))
+    _check(g_final_t, "g_final_t", torch.float32, (height, width))
+
+    dev = feats.device
+    max_dup = sorted_gid.shape[0]
+    # entries past each tile's last applied one are never written
+    egrads = torch.zeros((max_dup, N_FEATS), dtype=torch.float32, device=dev)
+    lib = _library("blend_backward")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.blend_backward_launch(
+            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
+            tile_counts.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+            g_img4.data_ptr(), g_final_t.data_ptr(), gw * gh, gw, tile_w,
+            tile_h, width, height, float(alpha_min), int(use_lod),
+            egrads.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("blend_backward kernel launch failed: "
+                           f"{lib.blend_backward_error_string(err).decode()}")
+    blend_backward.launches += 1
+    return egrads
+
+
+blend_backward.launches = 0

@@ -11,7 +11,10 @@ per-pixel semantics of the CUDA kernel.
 `blend_forward_plain` is the plain version of kernel B1
 (`csrc/blend_forward.cu`, wrapper `ops/rasterize_cuda.py`): same inputs,
 same outputs, the same arithmetic in the same order. `rasterize_scan` is the
-`backend="xla"` render path built on it.
+`backend="xla"` render path built on it (differentiable through autograd).
+`blend_backward_plain` is the plain version of kernel B2
+(`csrc/blend_backward.cu`): the hand-derived backward of the blend, walking
+the entry slots back to front.
 
 LOD alpha correction (forward.cu:546-554), in the form the Pallas and CUDA
 kernels evaluate it:
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from hlod_gaussians_torch.ops.binning import TileBins, tile_grid
 
@@ -98,6 +102,15 @@ def untile(x, width: int, height: int, tile_w: int, tile_h: int):
     return x.reshape((gh * tile_h, gw * tile_w) + extra)[:height, :width]
 
 
+def tile_image(x, width: int, height: int, tile_w: int, tile_h: int):
+    """[..., H, W] -> [..., T, P], zero past the image (inverse of untile)."""
+    gw, gh = tile_grid(width, height, tile_w, tile_h)
+    x = F.pad(x, (0, gw * tile_w - width, 0, gh * tile_h - height))
+    lead = tuple(x.shape[:-2])
+    x = x.reshape(lead + (gh, tile_h, gw, tile_w)).transpose(-3, -2)
+    return x.reshape(lead + (gh * gw, tile_h * tile_w))
+
+
 def blend_forward_plain(feats, sorted_gid, tile_starts, tile_counts, *,
                         width: int, height: int, tile_w: int, tile_h: int,
                         t_eps: float = 1e-4, alpha_min: float = 1.0 / 255.0,
@@ -148,6 +161,88 @@ def blend_forward_plain(feats, sorted_gid, tile_starts, tile_counts, *,
     return (img4.contiguous(), untile(t_run, width, height, tile_w, tile_h),
             untile(last, width, height, tile_w, tile_h),
             seen.bool() if want_seen else None)
+
+
+def blend_backward_plain(feats, sorted_gid, tile_starts, tile_counts,
+                         final_t, n_contrib, g_img4, g_final_t, *,
+                         width: int, height: int, tile_w: int, tile_h: int,
+                         alpha_min: float = 1.0 / 255.0,
+                         use_lod: bool = False):
+    """Plain version of kernel B2: the hand-derived backward of
+    blend_forward_plain (rasterize_pallas.py::_backward_tile :823-1061).
+
+    feats [N, 12], sorted_gid [max_dup], tile_starts / tile_counts [T]; the
+    forward's final_t [H, W] and n_contrib [H, W]; the cotangents g_img4
+    [4, H, W] and g_final_t [H, W] -> per-entry gradients [max_dup, 12] in
+    the blend_features column order (dgx, dgy, the three pre-scaled conic
+    coefficients, opacity, rgb, inverse depth; F_T and F_IK carry none).
+
+    Step k takes the k-th entry of every tile, from the longest n_contrib
+    down to 0. An entry is applied iff it passes the forward's skips and
+    k + 1 <= n_contrib, which is exactly the forward's applied set; T before
+    it is rebuilt by division from final_t. Per pixel:
+        dL/dalpha_k = cdotg_k T_k - (S_k + g_T * final_t) / (1 - alpha_k)
+    with cdotg = sum_ch c_ch g_ch and the suffix S_k = sum_{j>k} alpha_j
+    T_j cdotg_j; the LOD chain rule multiplies by dalpha/dmy, and where
+    op * G >= 0.99 (the clip) power and opacity get no gradient."""
+    dev = feats.device
+    px, py, inside = tile_pixels(width, height, tile_w, tile_h, dev)
+    pxf, pyf = px.to(torch.float32), py.to(torch.float32)
+    max_dup = sorted_gid.shape[0]
+    tiled = lambda x: tile_image(x, width, height, tile_w, tile_h)
+    t_after = tiled(final_t)                          # [T, P]
+    nc = tiled(n_contrib)
+    g4 = tiled(g_img4)                                # [4, T, P]
+    dtf = tiled(g_final_t) * t_after
+    k_max = int(nc.max()) if nc.numel() else 0
+
+    # one spare row takes the writes of tiles that have no entry k
+    egrads = torch.zeros((max_dup + 1, N_FEATS), dtype=torch.float32,
+                         device=dev)
+    suf = torch.zeros_like(t_after)
+    for k in range(k_max - 1, -1, -1):
+        valid_entry = k < tile_counts
+        e = torch.clamp(tile_starts + k, 0, max(max_dup - 1, 0))
+        f = feats[sorted_gid[e].long()]                      # [T, 12]
+        col = lambda i: f[:, i:i + 1]
+        alpha, power = entry_alpha(f, pxf, pyf, use_lod)
+        applied = (valid_entry[:, None] & inside & (power <= 0.0)
+                   & (alpha >= alpha_min) & (k < nc))
+        a = torch.where(applied, alpha, torch.zeros_like(alpha))
+        one_m = 1.0 - a
+        t_before = t_after / one_m
+        contrib = a * t_before
+        cdotg = (col(F_R) * g4[0] + col(F_G) * g4[1] + col(F_B) * g4[2]
+                 + col(F_INVD) * g4[3])
+        dcolor = torch.sum(contrib[None] * g4, dim=2).t()         # [T, 4]
+        dal = cdotg * t_before - (suf + dtf) / one_m
+        dal = torch.where(applied, dal, torch.zeros_like(dal))
+
+        opg = col(F_OP) * torch.exp(power)
+        if use_lod:
+            one_m_my = torch.clamp_min(1.0 - torch.clamp_max(opg, 0.99),
+                                       1e-12)
+            pw = torch.exp(col(F_IK) * torch.log(one_m_my))
+            dal = dal * (col(F_T) + (1.0 - col(F_T)) * col(F_IK) * pw
+                         / one_m_my)
+        dpower = torch.where(opg < 0.99, opg * dal, torch.zeros_like(dal))
+        # factored spatial reductions (rasterize_pallas.py:991-1012)
+        dx = col(F_X) - pxf
+        dy = col(F_Y) - pyf
+        u = dx * dpower
+        v = dy * dpower
+        su, sv = u.sum(1), v.sum(1)
+        g12 = torch.stack([
+            2.0 * f[:, F_S0] * su + f[:, F_S1] * sv,
+            2.0 * f[:, F_S2] * sv + f[:, F_S1] * su,
+            (dx * u).sum(1), (dy * u).sum(1), (dy * v).sum(1),
+            dpower.sum(1) / torch.clamp_min(f[:, F_OP], 1e-30),
+            dcolor[:, 0], dcolor[:, 1], dcolor[:, 2], dcolor[:, 3],
+            torch.zeros_like(su), torch.zeros_like(su)], dim=1)
+        egrads[torch.where(valid_entry, e, max_dup).long()] = g12
+        suf = suf + contrib * cdotg
+        t_after = t_before
+    return egrads[:max_dup]
 
 
 def rasterize_scan(

@@ -4,11 +4,12 @@ tau_to_threshold, and render_lod with its dynamic cut).
 
 ``xy_offset`` is the screen-space hook of the reference's
 ``screenspace_points`` (gaussian_renderer/__init__.py:45-52): an [N,2]
-tensor added to the projected means, whose gradient drives densification
-once the blend has a backward.
+tensor added to the projected means, whose gradient drives densification.
 
-The pallas backend blends with the CUDA kernel B1 and is forward-only in
-this slice; the xla backend blends with the plain scan.
+Both backends are differentiable with respect to means3d, scales, quats,
+opacities, shs and xy_offset. The pallas backend blends with the CUDA
+kernel B1 and differentiates through kernel B2 (ops/rasterize.py); the xla
+backend blends with the plain scan and differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -97,7 +98,7 @@ def render_arrays(
             bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
             ts_r, kids_r, width=width, height=height, tile_w=cfg.tile_w,
             tile_h=cfg.tile_h, t_eps=cfg.t_eps, alpha_min=cfg.alpha_min,
-            want_seen=want_seen)
+            want_seen=want_seen, inference=cfg.inference)
     elif cfg.backend == "xla":
         # the scan path keeps the reference's circle rects
         bins = bin_gaussians(

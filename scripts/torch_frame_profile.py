@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Device-time profile of the PyTorch port's serving frames on one GPU.
+"""Device-time profile of the PyTorch port's serving frames and training
+step on one GPU.
 
     python3 scripts/torch_frame_profile.py [--frames 8]
 
 Serves the flat 1080p bench request (render_arrays, 100k Gaussians, SH 3,
-32x32 tiles, tight binning) and the tau-3 LOD request of chip_smoke.py
-under torch.profiler and prints, per path: the CUDA-event time per frame,
-the host wall time per frame, the device busy time (union of CUDA kernel
-intervals), the busy share of the CUDA-event window, kernel launches per
-frame, and the kernels with the most device time. Needs a CUDA device.
+32x32 tiles, tight binning) and the tau-3 LOD request of chip_smoke.py,
+and takes the flat training step of chip_smoke.py (train.flat.train_step
+on the perturbed bench scene at 1080p), under torch.profiler and prints,
+per path: the CUDA-event time per frame (or step), the host wall time, the
+device busy time (union of CUDA kernel intervals), the busy share of the
+CUDA-event window, kernel launches per frame, and the kernels with the most
+device time. Needs a CUDA device.
 """
+
+import dataclasses
 
 import argparse
 import os
@@ -84,10 +89,11 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from chip_smoke import load_bench_scene
-    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch import convert, render
     from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.data.dhier import load_dhier
     from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train import flat
     from hlod_gaussians_torch.train.post import create_from_dhier
     from hlod_gaussians_torch.utils.camera import make_camera
 
@@ -144,6 +150,27 @@ def main():
                 n_skybox=state.n_skybox, cfg=lod_cfg)
 
     profile("lod tau 3", serve_lod, args.frames)
+    del state, act
+
+    # the training step of chip_smoke.py [5]: the bench scene with f_dc
+    # + 0.3 and xyz jitter, fit toward its own render
+    n = means.shape[0]
+    truth = convert.state_from_numpy(
+        dict(s, exposure=np.eye(3, 4, dtype=np.float32)[None],
+             alive=np.ones(n, bool), nodes=np.full((n, 6), -1, np.int32)),
+        n_skybox=0, device=dev)
+    gt = serve_flat().image
+    noise = np.random.default_rng(7).normal(size=(n, 3)).astype(np.float32)
+    box = [flat.init_flat_train(dataclasses.replace(
+        truth, f_dc=truth.f_dc + 0.3, xyz=truth.xyz + t(noise * 0.01)))]
+
+    def train():
+        box[0], _ = flat.train_step(
+            box[0], cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+            cam.tan_fovy, gt, bg, exposure_idx=0, scene_extent=8.0, cfg=cfg,
+            width=width, height=height, sh_degree=3)
+
+    profile("train step", train, args.frames)
     return 0
 
 

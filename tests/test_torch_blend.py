@@ -166,15 +166,23 @@ def test_kernel_path_on_cpu_matches_pallas_interpret(case):
     assert got.seen.any()
 
 
-def test_kernel_path_is_forward_only():
+def test_kernel_path_is_differentiable_and_inference_raises():
+    """The kernel path differentiates through its autograd Function; a
+    render made with inference=True raises on backward (as the JAX package
+    does for a render binned without gradient bookkeeping)."""
     s = scene(n=40, seed=1)
     (xy, con, op, col, inv, bg), _ = torch_args(s)
     bins = torch_bins(s, 16, 16)
     op.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W, height=H,
-                        tile_w=16, tile_h=16)
+    out = rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W, height=H,
+                          tile_w=16, tile_h=16)
+    out.image.sum().backward()
+    assert torch.isfinite(op.grad).all() and bool((op.grad != 0).any())
+    out = rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W, height=H,
+                          tile_w=16, tile_h=16, inference=True)
+    with pytest.raises(RuntimeError, match="inference"):
+        out.image.sum().backward()
     with torch.no_grad():
         out = rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W,
-                              height=H, tile_w=16, tile_h=16)
+                              height=H, tile_w=16, tile_h=16, inference=True)
     assert torch.isfinite(out.image).all()

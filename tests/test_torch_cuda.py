@@ -1,7 +1,8 @@
-"""The CUDA blend kernel (kernel B1) against its plain PyTorch version on the
-card. Every test here is marked `cuda` and skips without a GPU: a CUDA
-kernel has no CPU mode. This file imports neither JAX nor the JAX package,
-so it runs where only PyTorch is installed:
+"""The CUDA blend kernels (B1 forward, B2 backward) against their plain
+PyTorch versions on the card, and the differentiable kernel path against
+the same render on the CPU. Every test here is marked `cuda` and skips
+without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
+nor the JAX package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=. python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -10,14 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+from hlod_gaussians_torch import render
+from hlod_gaussians_torch.config import RasterizerConfig
 from hlod_gaussians_torch.ops import gaussian_math, rasterize_cuda
 from hlod_gaussians_torch.ops.binning import bin_gaussians
-from hlod_gaussians_torch.ops.rasterize_xla import (blend_features,
+from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
+                                                    blend_features,
                                                     blend_forward_plain)
 from hlod_gaussians_torch.utils.camera import make_camera
 
 W, H = 96, 64
 ATOL = 2e-5
+GRAD_ATOL = 3e-4     # per-entry gradients, scaled by the largest magnitude
 
 CASES = {
     "16x16": dict(tile=(16, 16), n=300, seed=5),
@@ -105,3 +110,83 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="1024"):
         rasterize_cuda.blend_forward(feats, gid, starts, counts,
                                      **dict(kw, tile_w=64, tile_h=32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_backward_matches_plain(case, cuda_device):
+    """Kernel B2 against blend_backward_plain on B1's own final_t and
+    n_contrib and random cotangents; two launches give the same bits."""
+    args, kw = _inputs(cuda_device, **CASES[case])
+    _, final_t, n_contrib, _ = rasterize_cuda.blend_forward(*args, **kw)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    g_img4 = torch.randn((4, H, W), generator=gen, device=cuda_device)
+    g_ft = torch.randn((H, W), generator=gen, device=cuda_device)
+    bargs = args + (final_t, n_contrib, g_img4, g_ft)
+    launches = rasterize_cuda.blend_backward.launches
+    got = rasterize_cuda.blend_backward(*bargs, **kw)
+    again = rasterize_cuda.blend_backward(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.blend_backward.launches == launches + 2
+    ref = blend_backward_plain(*bargs, **kw)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    assert float((got - ref).abs().max()) <= GRAD_ATOL * scale
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        rasterize_cuda.blend_backward(*bargs, **dict(kw, tile_w=5, tile_h=5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lod", [False, True], ids=["flat", "lod"])
+def test_cuda_render_grads_match_cpu(lod, cuda_device):
+    """render_arrays (pallas backend) differentiated on the card (B1 + B2 +
+    the per-Gaussian reduction) against the same render on the CPU (the
+    plain versions), per input tensor scaled by its largest gradient; a
+    second backward on the card gives the same bits."""
+    rng = np.random.default_rng(4)
+    n = 300
+    xyz = rng.normal(size=(n, 3)).astype(np.float32) * 1.2
+    xyz[:, 2] = 4.0 + rng.uniform(-1, 1, n)
+    arrays = dict(
+        means=xyz,
+        scales=np.exp(rng.normal(size=(n, 3)) * 0.4 - 2.5).astype(np.float32),
+        quats=rng.normal(size=(n, 4)).astype(np.float32),
+        opac=rng.uniform(0.2, 0.95, n).astype(np.float32),
+        shs=(rng.normal(size=(n, 4, 3)) * 0.3).astype(np.float32))
+    ts = rng.uniform(0, 1, n).astype(np.float32)
+    kids = rng.integers(0, 4, n).astype(np.int32)
+    tgt = rng.uniform(0, 1, (3, H, W)).astype(np.float32)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=1 << 16)
+    grads = {}
+    for dev in (torch.device("cpu"), cuda_device, cuda_device):
+        leaves = {k: torch.as_tensor(v, device=dev).requires_grad_(True)
+                  for k, v in arrays.items()}
+        cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, W, H, device=dev)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        out = render.render_arrays(
+            leaves["means"], leaves["scales"], leaves["quats"],
+            leaves["opac"], leaves["shs"],
+            torch.ones(n, dtype=torch.bool, device=dev), cam.world_view,
+            cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy,
+            t(np.array([0.2, 0.1, 0.3], np.float32)),
+            t(ts) if lod else None, t(kids) if lod else None,
+            sh_degree=1, width=W, height=H, cfg=cfg, use_lod=lod)
+        loss = (torch.abs(out.image - t(tgt)).mean()
+                + 0.1 * out.invdepth.mean())
+        launches = rasterize_cuda.blend_backward.launches
+        loss.backward()
+        assert rasterize_cuda.blend_backward.launches == launches + (
+            dev.type == "cuda")
+        got = {k: v.grad.cpu() for k, v in leaves.items()}
+        if dev.type in grads and dev.type == "cuda":
+            for k, v in got.items():
+                assert torch.equal(v, grads["cuda"][k]), k
+        grads[dev.type] = got
+    for k, ref in grads["cpu"].items():
+        got = grads["cuda"][k]
+        assert torch.isfinite(got).all(), k
+        scale = float(ref.abs().max())
+        assert scale > 0 and float((got - ref).abs().max()) <= \
+            GRAD_ATOL * scale, k

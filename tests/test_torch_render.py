@@ -83,17 +83,26 @@ def test_render_arrays_xla_backend_matches_jax():
 
 
 def test_render_arrays_pallas_raises_under_grad():
+    """A pallas-backend render made with RasterizerConfig.inference raises
+    when differentiated; the same render with a training config does not."""
     a = _inputs()
     cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.8, W, H, device=CPU)
     xyz = torch.as_tensor(a["xyz"]).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        trender.render_arrays(
+
+    def render(inference):
+        return trender.render_arrays(
             xyz, torch.as_tensor(a["scale"]), torch.as_tensor(a["quat"]),
             torch.as_tensor(a["op"]), torch.as_tensor(a["shs"]),
             torch.ones(len(a["op"]), dtype=torch.bool), cam.world_view,
             cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy,
             torch.as_tensor(BG), sh_degree=1, width=W, height=H,
-            cfg=RasterizerConfig(backend="pallas", tile_w=16, tile_h=16))
+            cfg=RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                                 inference=inference))
+
+    with pytest.raises(RuntimeError, match="inference"):
+        render(True).image.mean().backward()
+    render(False).image.mean().backward()
+    assert torch.isfinite(xyz.grad).all() and bool((xyz.grad != 0).any())
 
 
 def test_apply_exposure_and_tau_match_jax():
