@@ -8,17 +8,23 @@ through the public entry points, and prints the kernel table.
 
 Phases (any failure raises and exits non-zero):
   1. card name and power limit; build both kernels with nvcc, one process
-     per source, started together (build seconds).
+     per source, started together (build seconds; ptxas registers and
+     spills of every kernel specialisation).
   2. kernel B1 (blend forward) vs its plain version on small scenes (LOD
-     on/off, seen, 16x16, 32x32, 16x8 and 8x128 tiles, sticky early stop
-     across entry batches, dense overlap with saturated pixels): images,
+     on/off, seen, 16x16, 32x32, 16x8, 8x128, 8x4, 8x8, 8x24 and 12x8
+     tiles, sticky early stop across entry batches, dense overlap with
+     saturated pixels, 250x190 frames whose last tile row and column lie
+     partly outside the image): images,
      inverse depth and final T to atol 2e-5, n_contrib and seen exact; then
      one 1080p bench frame: image to atol 1e-4, share of pixels whose
      n_contrib differs <= 1e-4.
   2b. kernel B2 (blend backward) vs its plain version on the same small
      scenes and the 1080p bench frame, on B1's final T and n_contrib and
      seeded random cotangents: per-entry gradients to atol 3e-4 times the
-     largest plain magnitude; two launches bitwise equal.
+     largest plain magnitude; two launches bitwise equal. The tiles reach
+     each of B2's launch shapes (4, 2 and 1 pixels a thread, one warp and
+     several), the sticky cases walk 600 entries (19 batches, the entry
+     ring wraps) and the ragged frames have partial tiles.
   3. flat serving: 8 requests through render.render_arrays at 1920x1080 on
      the 100k-Gaussian SH-3 bench scene (scripts/bench_scene.py), 32x32
      tiles, tight binning, max_dup 352*1024; every request untruncated and
@@ -41,6 +47,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -81,6 +88,21 @@ def nvidia_smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(build_log):
+    """(kernel specialisation, registers or spills line) pairs from nvcc's
+    -Xptxas -v output, e.g. ("blend_backward_kernel<0, 4>", "Used 80
+    registers, ...") for the flat kernel at 4 pixels a thread."""
+    kernel_name = "?"
+    for line in build_log.splitlines():
+        m = re.search(r"(blend_(?:forward|backward)_kernel)I(\w*?)EEv",
+                      line)
+        if m:
+            args = re.findall(r"L[bi](\d+)E", m.group(2) + "E")
+            kernel_name = f"{m.group(1)}<{', '.join(args)}>"
+        elif "registers" in line or "spill" in line:
+            yield kernel_name, line.replace("ptxas info    :", "").strip()
 
 
 def cuda_time_ms(fn, reps, warmup=1):
@@ -436,9 +458,8 @@ def main():
                                  for path, _ in built.values())
         + f" in {time.perf_counter() - t0:.2f} s")
     for name, (_, build_log) in built.items():
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas {name}: " + line.strip())
+        for kernel_name, line in ptxas_lines(build_log):
+            log(f"    ptxas {kernel_name}: {line}")
 
     # ---- 2. kernel vs plain --------------------------------------------
     log("[2] kernel vs plain version")
@@ -454,10 +475,22 @@ def main():
          True),
         ("16x8 sticky", (16, 8), dict(n=600, seed=7, stacked=True), True),
         ("16x16 sticky", (16, 16), dict(n=600, seed=7, stacked=True), True),
+        # B2 runs 4 pixels a thread on the tiles above, 2 on 8x8 and 8x24,
+        # 1 on 8x4 and 12x8; ragged frames cut the last tile row and column
+        ("8x4", (8, 4), dict(n=2000, seed=11), False),
+        ("8x4 sticky", (8, 4), dict(n=600, seed=7, stacked=True), True),
+        ("8x8 lod", (8, 8), dict(n=2000, seed=13, lod=True), False),
+        ("8x24 ragged", (8, 24), dict(n=2000, seed=15, frame=(250, 190)),
+         False),
+        ("12x8 ragged lod", (12, 8), dict(n=2000, seed=17, lod=True,
+                                          frame=(250, 190)), False),
+        ("32x32 ragged seen", (32, 32), dict(n=2000, seed=19,
+                                             frame=(250, 190)), True),
     ]
-    sw, shh = 256, 192
     b2_cases = {}      # B2's cases: the scenes above, once each
     for name, (tw, th), kw, want_seen in cases:
+        kw = dict(kw)
+        sw, shh = kw.pop("frame", (256, 192))
         p, color, ts, kids = small_scene(dev, width=sw, height=shh, **kw)
         bins, feats = blend_inputs(p, color, ts, kids, sw, shh, tw, th,
                                    1 << 20, tight=not kw.get("stacked"))

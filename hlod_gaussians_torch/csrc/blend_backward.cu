@@ -15,45 +15,158 @@
 //   cdotg = sum_ch c_ch g_ch and the suffix S = sum_{j>k} alpha_j T_j cdotg_j;
 //   the LOD chain rule multiplies by dalpha/dmy; where op*G >= 0.99 (the
 //   clip) power and opacity get no gradient. Per entry it writes one row of
-//   egrads [max_dup, 12]: dgx, dgy, d(s0, s1, s2), dop, drgb, dinvdepth,
-//   0, 0 (t and 1/kids carry no gradient).
+//   egrads [max_dup, 12]: dgx, dgy, d(s0, s1, s2), dop, drgb, dinvdepth;
+//   columns 10 and 11 (t and 1/kids) carry no gradient and stay zero.
 //
-// Design: the TPU kernel evaluates [128 entries x pixels] chunks in closed
-// form (prefix products, triangular suffix sums). Here the reference's own
-// shape serves, as in B1: one block per tile, one thread per pixel
-// (tile_w*tile_h a multiple of 32, at most 1024), each thread carrying its
-// pixel's T and S serially. Entries go through shared memory in batches of
-// kBatch. Every entry belongs to exactly one tile, so its gradient is a
-// reduction over the block's pixels: ten pixel sums (u, v, dpower, dx*u,
-// dy*u, dy*v and the four colour sums) are summed across each warp with an
-// xor butterfly (skipped when no lane of the warp applied the entry), the
-// per-warp partials wait in shared memory, and after the batch one thread
-// per (entry, sum) adds the warps in index order. The row is then written
-// once. No atomics touch global memory and every sum runs in a fixed
-// order, so two launches on the same inputs give the same bits.
+// Bound on this card: operations. Per needed (entry, pixel) pair, i.e. each
+// entry before the pixel's n_contrib, about 14 f32 operations decide whether
+// it was applied, and about 24 more follow for an applied pair, against 48
+// bytes of features per entry and 28 bytes of per-pixel inputs. What the
+// bound does not count: every entry belongs to one tile, so its gradient is
+// a sum over the tile's pixels (ten sums per entry), the walk runs in
+// whole warps, and the entry batches are shared by the block. On an H100 at
+// the 1080p bench frame the decision walk alone takes about two thirds of
+// the kernel's time (scripts/b2_variants.py).
 //
-// Shared memory: kBatch rows of features (48 B each) plus the partials,
-// nwarps * kBatch * 10 floats = 40 KB at 32x32 tiles with kBatch = 32.
+// Design (one block per tile):
+// - P pixels per thread, P the largest of 4, 2, 1 that tiles the tile into
+//   warp patches (launch_shape; 256 threads at 32x32 and 8x128 tiles). A
+//   warp owns a compact pw x 32*P/pw patch (16x8 at 32x32), and a lane
+//   takes P pixels of one patch row, so the dy terms of power are computed
+//   once for P pixels (in B1's operation order). Each thread carries P
+//   independent (T, S) chains and adds its P pixels' ten contributions in
+//   registers, so the warp reduction is paid once per 32*P pixels, and is
+//   skipped (__any_sync) where no lane applied the entry.
+// - A transposing (reduce-scatter) butterfly: at each xor level a lane keeps
+//   half of its values and sends the other half, 10 -> 5 -> 3 -> 2 -> 1 ->
+//   1 values, 12 shuffles per (entry, warp) in place of 10 x 5 = 50; the ten
+//   sums end in ten lanes, which store them with one instruction.
+// - Less walking: a warp skips the entries at or past its pixels' largest
+//   n_contrib (whole batches, too) without storing anything, and the
+//   cross-warp sum reads a warp's partial only where that warp walked the
+//   entry; on the flat path a pixel whose power lies below log(alpha_min /
+//   opacity) - 0.05 skips the exp (op * exp(power) < 0.95 alpha_min there,
+//   so B1 did not apply it either). The P powers are computed straight-line
+//   first, and a warp none of whose pixels passes the power tests leaves
+//   the entry after one vote.
+// - Entries go through shared memory in batches of kBatch, in a ring of
+//   kStages feature slots filled by warp 0 with 16-byte cp.async (the
+//   sorted_gid load for the batch after next is in flight in a register).
+//   One __syncthreads per batch: after it, batch i is resident, batch i-1's
+//   partials are complete and the slot of batch i-2 is free; then batch i+1
+//   is issued, batch i-1 is summed across warps and written out (ten lanes
+//   per entry, three entries per warp instruction), and batch i is walked.
+//   Partials are double-buffered by batch parity.
+// - Occupancy: three blocks of 256 threads per SM at P = 4 (80 registers);
+//   two or four measure slower (scripts/b2_variants.py).
+// - Determinism: no atomics; every sum runs in a fixed order (the P pixels,
+//   the butterfly tree, the warps in index order), so two launches on the
+//   same inputs give the same bits. The summation order differs from the
+//   plain version's, so results agree to rounding, not bitwise.
+// - The decision arithmetic (power, LOD alpha) uses the _rn intrinsics
+//   exactly as blend_forward.cu does, so both kernels and the plain version
+//   agree on the applied set; the T rebuild uses IEEE division (the suffix
+//   term S / (1 - alpha), a gradient and no decision, a 2-ulp divide).
+//   Build without --use_fast_math.
+// - Tensor cores: not used. The ten sums are [entries x pixels] x [pixels x
+//   10] products, but their operands (dpower, contrib) are made per pair by
+//   the serial walk itself, and TF32 would carry ~1e-3 relative error
+//   against the 3e-4 scaled tolerance; the moment form (sums of dpower
+//   times 1, px, py, px^2, px*py, py^2) cancels badly at pixel coordinates
+//   near 1920. The reduction is ~10% of the time at the bench frame
+//   (b2_variants.py), so there is little for them to take.
 //
-// Bound on this card: operations. Per needed (entry, pixel) pair about 15
-// f32 operations decide whether it was applied and about 27 more follow for
-// an applied pair, against 48 bytes of features per entry and 28 bytes of
-// per-pixel inputs; the warp reductions add shuffles that the bound does
-// not count. The decision arithmetic (power, LOD alpha) uses the _rn
-// intrinsics exactly as blend_forward.cu does, so both kernels and the
-// plain version agree on the applied set; the T rebuild uses IEEE division.
-// Build without --use_fast_math.
+// Budget per block (threads = tile_w*tile_h/P, W = threads/32 warps):
+// shared memory kStages*kBatch*48 B of features (4.6 KB) plus 2*kBatch*W*10
+// floats of partials: P = 4 at 32x32: 256 threads, 25.1 KB; P = 2 (e.g.
+// 8x8): 32 threads, 7.2 KB; P = 1 (at most 992 threads, 31 warps): 84 KB.
+// Registers: __launch_bounds__ asks for three blocks of 256 per SM at P = 4
+// flat (at most 85 registers a thread; ptxas uses 80 and spills 4 bytes)
+// and two with LOD (at most 128), one block at P = 2 (128) and P = 1 (64).
+// The per-thread state is 7*P + 1 registers (T, S, four cotangents and
+// n_contrib per pixel, px per pixel, one py). The ptxas lines that
+// chip_smoke.py prints give the real counts.
+//
+// scripts/b2_variants.py times this source against edited copies of it (P
+// capped, plain butterflies, other occupancy and batch sizes).
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kMaxP = 4;     // pixels per thread, at most
 constexpr int kBatch = 32;   // entries per shared-memory batch
+constexpr int kStages = 3;   // feature slots: walked, written out, in flight
 constexpr int kSums = 10;    // pixel sums reduced per entry
+constexpr int kCols = 12;    // egrads columns
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool LOD>
-__global__ void __launch_bounds__(1024)
+// Sum order (= egrads column, with su/sv turned into dgx/dgy and dpower into
+// dop at write-out): su, sv, dx*u, dy*u, dy*v, dpower, contrib * g0..g3.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float shfl(float x, int o) {
+  return __shfl_xor_sync(kFull, x, o);
+}
+
+// Reduce-scatter of v[0..9] over the warp: returns the warp-wide sum of
+// value *c in the lane that stores it, *c = -1 in the other lanes. Level by
+// level (xor 16, 8, 4, 2, 1) a lane's values halve, 10 -> 5 -> {3|2} ->
+// {2|1} -> 1; partners always hold the same set of value indices.
+__device__ __forceinline__ float reduce_scatter10(const float (&v)[kSums],
+                                                  int lane, int* c) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float w[5];                            // b4 clear: values 0-4, set: 5-9
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const float send = b4 ? v[s] : v[s + 5];
+    const float keep = b4 ? v[s + 5] : v[s];
+    w[s] = keep + shfl(send, 16);
+  }
+  // b3 clear keeps slots 0-2 (x0..x2), set keeps slots 3-4 (x0, x1)
+  const float x0 = (b3 ? w[3] : w[0]) + shfl(b3 ? w[0] : w[3], 8);
+  const float x1 = (b3 ? w[4] : w[1]) + shfl(b3 ? w[1] : w[4], 8);
+  const float x2 = w[2] + shfl(w[2], 8);               // b3 clear only
+  // b3 clear: {x0, x1} (b2 clear) / {x2} (b2 set); b3 set: {x0} / {x1}
+  const float other = b3 ? x1 : x2;
+  const float y0 = (b2 ? other : x0) + shfl(b2 ? x0 : other, 4);
+  const float y1 = x1 + shfl(x1, 4);                   // b3, b2 clear only
+  // b3, b2 clear: {y0} (b1 clear) / {y1} (b1 set); the rest hold one value
+  const bool two = !b3 && !b2;
+  const float z0 = (two && b1 ? y1 : y0) + shfl(two && !b1 ? y1 : y0, 2);
+  const float z = z0 + shfl(z0, 1);
+  const int idx = (b4 ? 5 : 0) + (b3 ? 3 + (b2 ? 1 : 0)
+                                     : (b2 ? 2 : (b1 ? 1 : 0)));
+  *c = (!(lane & 1) && (two || !b1)) ? idx : -1;
+  return z;
+}
+
+// Blocks per SM asked of ptxas: at P = 4 three blocks of 256 threads (80
+// registers) for the flat kernel, two for the LOD one, which would spill
+template <bool LOD, int P>
+struct Bounds {
+  static constexpr int kThreads = 1024 / P;
+  static constexpr int kMinBlocks = P == 4 ? (LOD ? 2 : 3) : 1;
+};
+
+template <bool LOD, int P>
+__global__ void __launch_bounds__(Bounds<LOD, P>::kThreads,
+                                  Bounds<LOD, P>::kMinBlocks)
 blend_backward_kernel(const float4* __restrict__ feats,    // [N, 3] float4
                       const int* __restrict__ sorted_gid,  // [max_dup]
                       const int* __restrict__ tile_starts,  // [T]
@@ -62,173 +175,283 @@ blend_backward_kernel(const float4* __restrict__ feats,    // [N, 3] float4
                       const int* __restrict__ n_contrib,    // [H, W]
                       const float* __restrict__ g_img4,     // [4, H, W]
                       const float* __restrict__ g_final_t,  // [H, W]
-                      int gw, int tile_w, int tile_h, int width, int height,
-                      float alpha_min,
-                      float4* __restrict__ egrads) {        // [max_dup, 3]
+                      int gw, int tile_w, int tile_h, int patch_w, int width,
+                      int height, float alpha_min,
+                      float* __restrict__ egrads) {         // [max_dup, 12]
   extern __shared__ float4 smem[];
-  __shared__ int s_max_nc;
-  const int nthr = blockDim.x;
-  const int nwarps = nthr >> 5;
-  float4* s_f0 = smem;                 // x, y, s0, s1
-  float4* s_f1 = smem + kBatch;        // s2, opacity, r, g
-  float4* s_f2 = smem + 2 * kBatch;    // b, invdepth, t, 1/kids
-  // per-warp partial sums [nwarps][kBatch][kSums]
-  float* s_part = reinterpret_cast<float*>(smem + 3 * kBatch);
+  __shared__ int s_wnc[32];            // per-warp largest n_contrib
+  const int nwarps = blockDim.x >> 5;
+  float4* s_feat = smem;               // [kStages][kBatch][3] feature rows
+  // [2][kBatch][nwarps][kSums] per-warp partial sums, by batch parity
+  float* s_part = reinterpret_cast<float*>(smem + kStages * kBatch * 3);
 
   const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int px = (tile % gw) * tile_w + tid % tile_w;
-  const int py = (tile / gw) * tile_h + tid / tile_w;
-  const bool inside = px < width && py < height;
-  const float pxf = static_cast<float>(px);
-  const float pyf = static_cast<float>(py);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int start = tile_starts[tile];
   const int count = tile_counts[tile];
 
+  // this warp's patch of patch_w x 32*P/patch_w pixels: the lanes form a
+  // lw x 32/lw grid (lw = patch_w / P), and lane (lx, ly) takes the P
+  // pixels (lx + p*lw, ly) of patch row ly, which share dy
+  const int lw = patch_w / P;
+  const int patches_x = tile_w / patch_w;
+  const int x0 = (tile % gw) * tile_w + (warp % patches_x) * patch_w +
+                 lane % lw;
+  const int py = (tile / gw) * tile_h + (warp / patches_x) * (32 / lw) +
+                 lane / lw;
+  const float pyf = static_cast<float>(py);
+
   // pixels outside the image have n_contrib 0: they apply nothing but join
   // every barrier and every warp reduction
-  float T = 0.0f, dTf = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, g3 = 0.0f;
-  int nc = 0;
-  if (inside) {
-    const size_t hw = static_cast<size_t>(width) * height;
-    const size_t pix = static_cast<size_t>(py) * width + px;
-    T = final_t[pix];
-    nc = n_contrib[pix];
-    g0 = g_img4[pix];
-    g1 = g_img4[hw + pix];
-    g2 = g_img4[2 * hw + pix];
-    g3 = g_img4[3 * hw + pix];
-    dTf = g_final_t[pix] * T;
+  float pxf[P], T[P], S[P], g0[P], g1[P], g2[P], g3[P];
+  int nc[P];
+  int wnc = 0;
+  const size_t hw = static_cast<size_t>(width) * height;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int px = x0 + p * lw;
+    pxf[p] = static_cast<float>(px);
+    T[p] = S[p] = g0[p] = g1[p] = g2[p] = g3[p] = 0.0f;
+    nc[p] = 0;
+    if (px < width && py < height) {
+      const size_t pix = static_cast<size_t>(py) * width + px;
+      T[p] = final_t[pix];
+      nc[p] = n_contrib[pix];
+      g0[p] = g_img4[pix];
+      g1[p] = g_img4[hw + pix];
+      g2[p] = g_img4[2 * hw + pix];
+      g3[p] = g_img4[3 * hw + pix];
+      // S starts at the final-T cotangent term g_T * final_t, so that
+      // S / (1 - alpha) is the whole second term of dL/dalpha
+      S[p] = g_final_t[pix] * T[p];
+    }
+    wnc = max(wnc, nc[p]);
   }
-  if (tid == 0) s_max_nc = 0;
+  wnc = min(__reduce_max_sync(kFull, wnc), count);
+  if (lane == 0) s_wnc[warp] = wnc;
   __syncthreads();
-  if (nc > 0) atomicMax(&s_max_nc, nc);
-  __syncthreads();
-  const int max_nc = min(s_max_nc, count);
+  int max_nc = 0;
+  for (int w = 0; w < nwarps; ++w) max_nc = max(max_nc, s_wnc[w]);
+  const int nbat = (max_nc + kBatch - 1) / kBatch;
 
-  float S = 0.0f;
-  for (int end = max_nc; end > 0; end -= kBatch) {
-    const int base = max(end - kBatch, 0);
-    const int nb = end - base;
-    // the previous batch's features and partials are fully consumed
-    __syncthreads();
-    if (tid < nb) {
-      const int g = sorted_gid[start + base + tid];
-      const float4* row = feats + 3 * static_cast<size_t>(g);
-      s_f0[tid] = row[0];
-      s_f1[tid] = row[1];
-      s_f2[tid] = row[2];
+  // batch i holds entries [base, end), end = max_nc - i*kBatch
+  auto batch_base = [&](int i) { return max(max_nc - (i + 1) * kBatch, 0); };
+  auto batch_size = [&](int i) { return max_nc - i * kBatch - batch_base(i); };
+  // warp 0: lane t loads entries t, t + 32, ... of a batch; gid_of gives
+  // their sorted_gid, issue copies their rows
+  auto gid_of = [&](int i, int (&g)[kBatch / 32]) {
+#pragma unroll
+    for (int m = 0; m < kBatch / 32; ++m) {
+      const int e = m * 32 + lane;
+      g[m] = (i < nbat && e < batch_size(i))
+                 ? sorted_gid[start + batch_base(i) + e] : 0;
     }
-    __syncthreads();
-
-    for (int j = nb - 1; j >= 0; --j) {
-      float sums[kSums];
+  };
+  auto issue = [&](int i, const int (&g)[kBatch / 32]) {
 #pragma unroll
-      for (int c = 0; c < kSums; ++c) sums[c] = 0.0f;
-      bool applied = false;
-      if (base + j < nc) {
-        const float4 a = s_f0[j];
-        const float4 b = s_f1[j];
-        const float dx = __fsub_rn(a.x, pxf);
-        const float dy = __fsub_rn(a.y, pyf);
-        const float power = __fadd_rn(
-            __fmul_rn(dx, __fadd_rn(__fmul_rn(a.z, dx), __fmul_rn(a.w, dy))),
-            __fmul_rn(__fmul_rn(b.x, dy), dy));
-        if (!(power > 0.0f)) {
-          const float4 c = s_f2[j];
-          const float opG = __fmul_rn(b.y, expf(power));
-          float alpha = fminf(0.99f, opG);
-          float dalpha_dmy = 1.0f;
-          if (LOD) {
-            const float one_m_my = fmaxf(__fsub_rn(1.0f, alpha), 1e-12f);
-            const float pw = expf(__fmul_rn(c.w, logf(one_m_my)));
-            alpha = __fadd_rn(__fmul_rn(c.z, alpha),
-                              __fmul_rn(__fsub_rn(1.0f, c.z),
-                                        __fsub_rn(1.0f, pw)));
-            dalpha_dmy = c.z + (1.0f - c.z) * c.w * pw / one_m_my;
-          }
-          if (!(alpha < alpha_min)) {
-            applied = true;
-            const float one_m = __fsub_rn(1.0f, alpha);
-            const float t_before = __fdiv_rn(T, one_m);
-            const float contrib = alpha * t_before;
-            const float cdotg = b.z * g0 + b.w * g1 + c.x * g2 + c.y * g3;
-            const float dal = cdotg * t_before - (S + dTf) / one_m;
-            S += contrib * cdotg;
-            T = t_before;
-            const float dpower = opG < 0.99f ? opG * (dal * dalpha_dmy)
-                                             : 0.0f;
-            const float u = dx * dpower;
-            const float v = dy * dpower;
-            sums[0] = u;
-            sums[1] = v;
-            sums[2] = dpower;
-            sums[3] = dx * u;
-            sums[4] = dy * u;
-            sums[5] = dy * v;
-            sums[6] = contrib * g0;
-            sums[7] = contrib * g1;
-            sums[8] = contrib * g2;
-            sums[9] = contrib * g3;
-          }
-        }
-      }
-      float* part = s_part + (warp * kBatch + j) * kSums;
-      if (__any_sync(kFull, applied)) {
-#pragma unroll
-        for (int c = 0; c < kSums; ++c) {
-          float x = sums[c];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-          if (lane == 0) part[c] = x;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kSums; ++c) part[c] = 0.0f;
+    for (int m = 0; m < kBatch / 32; ++m) {
+      const int e = m * 32 + lane;
+      if (i < nbat && e < batch_size(i)) {
+        const float4* row = feats + 3 * static_cast<size_t>(g[m]);
+        float4* dst = s_feat + ((i % kStages) * kBatch + e) * 3;
+        cp_async16(dst, row);
+        cp_async16(dst + 1, row + 1);
+        cp_async16(dst + 2, row + 2);
       }
     }
-    __syncthreads();
+    cp_async_commit();                  // one group per batch, maybe empty
+  };
 
-    // cross-warp sums in warp order, into warp 0's slots: thread (j, c)
-    // alone reads and writes column (j, c)
-    for (int idx = tid; idx < nb * kSums; idx += nthr) {
-      const int j = idx / kSums;
-      const int c = idx - j * kSums;
+  // cross-warp sums of batch i in warp order and its egrads rows: lanes
+  // 10e..10e+9 take entry j0 + e, lane c its sum c
+  auto write_out = [&](int i) {
+    const int base = batch_base(i);
+    const int nb = batch_size(i);
+    const float* part = s_part + (i & 1) * kBatch * nwarps * kSums;
+    const float4* f = s_feat + (i % kStages) * kBatch * 3;
+    const int e = lane / kSums;
+    const int c = lane - e * kSums;
+    for (int j0 = warp * 3; j0 < nb; j0 += nwarps * 3) {
+      const int j = j0 + e;
+      const bool mine = e < 3 && j < nb;
       float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += s_part[(w * kBatch + j) * kSums + c];
-      s_part[j * kSums + c] = s;
+      if (mine) {
+        const float* col = part + j * nwarps * kSums + c;
+        for (int w = 0; w < nwarps; ++w)
+          if (base + j < s_wnc[w]) s += col[w * kSums];
+      }
+      const float pair = __shfl_xor_sync(kFull, s, 1);   // su <-> sv
+      if (mine) {
+        if (c < 2) {
+          const float4 a = f[3 * j];                      // x, y, s0, s1
+          const float s_own = c == 0 ? a.z : f[3 * j + 1].x;
+          s = 2.0f * s_own * s + a.w * pair;              // d gx, d gy
+        } else if (c == 5) {
+          s = s / fmaxf(f[3 * j + 1].y, 1e-30f);          // d opacity
+        }
+        egrads[static_cast<size_t>(start + base + j) * kCols + c] = s;
+      }
     }
-    __syncthreads();
+  };
 
-    if (tid < nb) {
-      const float* r = s_part + tid * kSums;
-      const float4 a = s_f0[tid];
-      const float4 b = s_f1[tid];
-      const float su = r[0], sv = r[1];
-      float4* out = egrads + 3 * static_cast<size_t>(start + base + tid);
-      out[0] = make_float4(2.0f * a.z * su + a.w * sv,    // d gx
-                           2.0f * b.x * sv + a.w * su,    // d gy
-                           r[3], r[4]);                   // d s0, d s1
-      out[1] = make_float4(r[5], r[2] / fmaxf(b.y, 1e-30f),  // d s2, d op
-                           r[6], r[7]);                   // d r, d g
-      out[2] = make_float4(r[8], r[9], 0.0f, 0.0f);       // d b, d invd
+  const float log_amin = logf(alpha_min) - 0.05f;
+  // this warp's walk of batch i, back to front; partials of entry j go to
+  // [i & 1][j][warp][:] wherever this warp walks it
+  auto walk = [&](int i) {
+    const int base = batch_base(i);
+    if (base >= wnc) return;                   // dead warp for this batch
+    float* part = s_part + (i & 1) * kBatch * nwarps * kSums;
+    const float4* f = s_feat + (i % kStages) * kBatch * 3;
+    for (int j = min(batch_size(i), wnc - base) - 1; j >= 0; --j) {
+      const int k = base + j;
+      const float4 a = f[3 * j];               // x, y, s0, s1
+      const float4 b = f[3 * j + 1];           // s2, opacity, r, g
+      const float4 cf = f[3 * j + 2];          // b, invdepth, t, 1/kids
+      // below this power op * exp(power) < 0.95 alpha_min, so the flat
+      // path skips the exp of pairs that were surely not applied
+      const float reject = LOD ? 0.0f : log_amin - __logf(b.y);
+      // the parts of power that depend on dy only (B1's operation order)
+      const float dy = __fsub_rn(a.y, pyf);
+      const float s1dy = __fmul_rn(a.w, dy);
+      const float s2dy2 = __fmul_rn(__fmul_rn(b.x, dy), dy);
+      // straight-line first: power at the P pixels and which of them may
+      // have applied the entry; a warp where none may skips the rest
+      float dxs[P], powers[P];
+      bool live[P];
+      bool any_live = false;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        dxs[p] = __fsub_rn(a.x, pxf[p]);
+        powers[p] = __fadd_rn(
+            __fmul_rn(dxs[p], __fadd_rn(__fmul_rn(a.z, dxs[p]), s1dy)),
+            s2dy2);
+        live[p] = k < nc[p] && !(powers[p] > 0.0f) &&
+                  (LOD || !(powers[p] < reject));
+        any_live |= live[p];
+      }
+      float* dst = part + (j * nwarps + warp) * kSums;
+      if (!__any_sync(kFull, any_live)) {
+        if (lane < kSums) dst[lane] = 0.0f;
+        continue;
+      }
+      float acc[kSums];
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) acc[s] = 0.0f;
+      bool applied = false;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (!live[p]) continue;
+        const float dx = dxs[p];
+        const float opG = __fmul_rn(b.y, expf(powers[p]));
+        float alpha = fminf(0.99f, opG);
+        float dalpha_dmy = 1.0f;
+        if (LOD) {
+          const float one_m_my = fmaxf(__fsub_rn(1.0f, alpha), 1e-12f);
+          const float pw = expf(__fmul_rn(cf.w, logf(one_m_my)));
+          alpha = __fadd_rn(__fmul_rn(cf.z, alpha),
+                            __fmul_rn(__fsub_rn(1.0f, cf.z),
+                                      __fsub_rn(1.0f, pw)));
+          dalpha_dmy = cf.z + (1.0f - cf.z) * cf.w * pw / one_m_my;
+        }
+        if (alpha < alpha_min) continue;
+        applied = true;
+        const float one_m = __fsub_rn(1.0f, alpha);
+        const float t_before = __fdiv_rn(T[p], one_m);
+        const float contrib = alpha * t_before;
+        const float cdotg = b.z * g0[p] + b.w * g1[p] + cf.x * g2[p] +
+                            cf.y * g3[p];
+        // the T rebuild above is IEEE; this term tolerates a 2-ulp divide
+        const float dal = cdotg * t_before - __fdividef(S[p], one_m);
+        S[p] += contrib * cdotg;
+        T[p] = t_before;
+        const float dpower = opG < 0.99f ? opG * (dal * dalpha_dmy) : 0.0f;
+        const float u = dx * dpower;
+        const float v = dy * dpower;
+        acc[0] += u;
+        acc[1] += v;
+        acc[2] += dx * u;
+        acc[3] += dy * u;
+        acc[4] += dy * v;
+        acc[5] += dpower;
+        acc[6] += contrib * g0[p];
+        acc[7] += contrib * g1[p];
+        acc[8] += contrib * g2[p];
+        acc[9] += contrib * g3[p];
+      }
+      if (!__any_sync(kFull, applied)) {
+        if (lane < kSums) dst[lane] = 0.0f;
+        continue;
+      }
+      int c;
+      const float z = reduce_scatter10(acc, lane, &c);
+      if (c >= 0) dst[c] = z;
+    }
+  };
+
+  int gid_next[kBatch / 32] = {};
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages - 2; ++i) {
+      gid_of(i, gid_next);
+      issue(i, gid_next);
+    }
+    gid_of(kStages - 2, gid_next);
+  }
+  for (int i = 0; i < nbat; ++i) {
+    if (warp == 0) cp_async_wait<kStages - 3>();     // batch i has landed
+    __syncthreads();
+    if (warp == 0) {
+      issue(i + kStages - 2, gid_next);            // into batch i-2's slot
+      gid_of(i + kStages - 1, gid_next);
+    }
+    if (i > 0) write_out(i - 1);
+    walk(i);
+  }
+  __syncthreads();
+  if (nbat > 0) write_out(nbat - 1);
+}
+
+// Pixels per thread and the warp patch width for a tile shape (the tile's
+// pixel count a multiple of 32, at most 1024): P is the largest of 4, 2, 1
+// (at most kMaxP) for which the tile splits into warp patches of pw x
+// 32*P/pw pixels with pw | tile_w, 32*P/pw | tile_h and P | pw (a lane's P
+// pixels lie in one patch row, pw/P lanes across); the patch is the
+// squarest such (wider on a tie). P = 1 with pw = gcd(tile_w, 32) always
+// qualifies. P is the largest the pixel count allows except on tiles
+// narrower than 16 whose width is not a multiple of 4 (6x64 runs P = 2,
+// 3x128 P = 1).
+void launch_shape(int tile_w, int tile_h, int* p, int* patch_w) {
+  const int npix = tile_w * tile_h;
+  for (int cand = kMaxP; cand >= 1; cand /= 2) {
+    const int n = 32 * cand;
+    if (npix % n) continue;
+    int best = 0;
+    for (int pw = cand; pw <= n && pw <= tile_w; pw += cand) {
+      if (tile_w % pw || 32 % (pw / cand) || tile_h % (n / pw)) continue;
+      if (!best || pw + n / pw <= best + n / best) best = pw;
+    }
+    if (best) {
+      *p = cand;
+      *patch_w = best;
+      return;
     }
   }
 }
 
-template <bool LOD>
+template <bool LOD, int P>
 cudaError_t launch(const void* feats, const void* sorted_gid,
                    const void* tile_starts, const void* tile_counts,
                    const void* final_t, const void* n_contrib,
                    const void* g_img4, const void* g_final_t, int num_tiles,
-                   int gw, int tile_w, int tile_h, int width, int height,
-                   float alpha_min, void* egrads, cudaStream_t stream) {
-  const int nthr = tile_w * tile_h;
-  const size_t smem = 3 * kBatch * sizeof(float4) +
-                      static_cast<size_t>(nthr / 32) * kBatch * kSums * sizeof(float);
-  auto kernel = blend_backward_kernel<LOD>;
+                   int gw, int tile_w, int tile_h, int patch_w, int width,
+                   int height, float alpha_min, void* egrads,
+                   cudaStream_t stream) {
+  const int nthr = tile_w * tile_h / P;
+  const size_t smem =
+      kStages * kBatch * 3 * sizeof(float4) +
+      static_cast<size_t>(2 * kBatch) * (nthr / 32) * kSums * sizeof(float);
+  auto kernel = blend_backward_kernel<LOD, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -239,36 +462,54 @@ cudaError_t launch(const void* feats, const void* sorted_gid,
       static_cast<const int*>(tile_counts),
       static_cast<const float*>(final_t), static_cast<const int*>(n_contrib),
       static_cast<const float*>(g_img4), static_cast<const float*>(g_final_t),
-      gw, tile_w, tile_h, width, height, alpha_min,
-      static_cast<float4*>(egrads));
+      gw, tile_w, tile_h, patch_w, width, height, alpha_min,
+      static_cast<float*>(egrads));
   return cudaGetLastError();
+}
+
+template <bool LOD>
+cudaError_t launch_p(int p, const void* feats, const void* sorted_gid,
+                     const void* tile_starts, const void* tile_counts,
+                     const void* final_t, const void* n_contrib,
+                     const void* g_img4, const void* g_final_t,
+                     int num_tiles, int gw, int tile_w, int tile_h,
+                     int patch_w, int width, int height, float alpha_min,
+                     void* egrads, cudaStream_t stream) {
+  decltype(&launch<LOD, 1>) fn =
+      p == 4 ? &launch<LOD, 4> : p == 2 ? &launch<LOD, 2> : &launch<LOD, 1>;
+  return fn(feats, sorted_gid, tile_starts, tile_counts, final_t, n_contrib,
+            g_img4, g_final_t, num_tiles, gw, tile_w, tile_h, patch_w, width,
+            height, alpha_min, egrads, stream);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing; egrads must arrive zeroed (entries past a
-// tile's last applied one are not written). Returns the launch's cudaError_t.
+// tile's last applied one, and columns 10-11, are not written). Returns the
+// launch's cudaError_t.
 extern "C" int blend_backward_launch(
     const void* feats, const void* sorted_gid, const void* tile_starts,
     const void* tile_counts, const void* final_t, const void* n_contrib,
     const void* g_img4, const void* g_final_t, int num_tiles, int gw,
     int tile_w, int tile_h, int width, int height, float alpha_min,
     int use_lod, void* egrads, void* stream) {
-  const int nthr = tile_w * tile_h;
-  if (nthr <= 0 || nthr > 1024 || nthr % 32)
+  const int npix = tile_w * tile_h;
+  if (tile_w <= 0 || tile_h <= 0 || npix > 1024 || npix % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
+  int p, patch_w;
+  launch_shape(tile_w, tile_h, &p, &patch_w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      use_lod ? launch<true>(feats, sorted_gid, tile_starts, tile_counts,
-                             final_t, n_contrib, g_img4, g_final_t, num_tiles,
-                             gw, tile_w, tile_h, width, height, alpha_min,
-                             egrads, s)
-              : launch<false>(feats, sorted_gid, tile_starts, tile_counts,
-                              final_t, n_contrib, g_img4, g_final_t,
-                              num_tiles, gw, tile_w, tile_h, width, height,
-                              alpha_min, egrads, s);
+      use_lod ? launch_p<true>(p, feats, sorted_gid, tile_starts, tile_counts,
+                               final_t, n_contrib, g_img4, g_final_t,
+                               num_tiles, gw, tile_w, tile_h, patch_w, width,
+                               height, alpha_min, egrads, s)
+              : launch_p<false>(p, feats, sorted_gid, tile_starts,
+                                tile_counts, final_t, n_contrib, g_img4,
+                                g_final_t, num_tiles, gw, tile_w, tile_h,
+                                patch_w, width, height, alpha_min, egrads, s);
   return static_cast<int>(err);
 }
 

@@ -210,9 +210,10 @@ def blend_backward(feats, sorted_gid, tile_starts, tile_counts, final_t,
     gw, gh = tile_grid(width, height, tile_w, tile_h)
     nthr = tile_w * tile_h
     if not 0 < nthr <= 1024 or nthr % 32:
-        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel runs one thread "
-                         "per pixel in whole warps, so tile_w * tile_h must "
-                         "be a multiple of 32 in [32, 1024]")
+        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel covers a tile "
+                         "with whole warps of 1, 2 or 4 pixels a thread, so "
+                         "tile_w * tile_h must be a multiple of 32 in "
+                         "[32, 1024]")
     _check_entries(feats, sorted_gid, tile_starts, tile_counts, gw, gh)
     _check(final_t, "final_t", torch.float32, (height, width))
     _check(n_contrib, "n_contrib", torch.int32, (height, width))

@@ -30,6 +30,15 @@ CASES = {
     "8x128-lod": dict(tile=(8, 128), n=300, seed=9, lod=True),
     "16x16-dense": dict(tile=(16, 16), n=800, seed=3, big=True),
     "16x8-sticky": dict(tile=(16, 8), n=600, seed=7, stacked=True),
+    # B2 runs 4 pixels a thread on the tiles above, 2 on 8x8 and 1 on 8x4
+    # and 12x8; the sticky walk wraps B2's entry ring, and the 90x61 frames
+    # cut the last tile row and column
+    "8x4": dict(tile=(8, 4), n=300, seed=11),
+    "8x4-sticky": dict(tile=(8, 4), n=300, seed=7, stacked=True),
+    "8x8-lod": dict(tile=(8, 8), n=300, seed=13, lod=True),
+    "12x8-ragged-lod": dict(tile=(12, 8), n=300, seed=17, lod=True,
+                            frame=(90, 61)),
+    "32x32-ragged": dict(tile=(32, 32), n=300, seed=19, frame=(90, 61)),
 }
 
 
@@ -40,7 +49,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(dev, tile, n, seed, big=False, lod=False, stacked=False):
+def _inputs(dev, tile, n, seed, big=False, lod=False, stacked=False,
+            frame=(W, H)):
+    width, height = frame
     rng = np.random.default_rng(seed)
     if stacked:
         xyz = np.zeros((n, 3), np.float32)
@@ -57,20 +68,21 @@ def _inputs(dev, tile, n, seed, big=False, lod=False, stacked=False):
         quats = rng.normal(size=(n, 4)).astype(np.float32)
         ops = rng.uniform(0.2, 0.95, n).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=dev)
-    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, W, H, device=dev)
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, width, height,
+                      device=dev)
     p = gaussian_math.project_gaussians(
         t(xyz), gaussian_math.compute_cov3d(t(scales), t(quats)), t(ops),
-        cam.world_view, cam.full_proj, W, H, cam.focal_x, cam.focal_y,
-        cam.tan_fovx, cam.tan_fovy)
+        cam.world_view, cam.full_proj, width, height, cam.focal_x,
+        cam.focal_y, cam.tan_fovx, cam.tan_fovy)
     ts = t(rng.uniform(0, 1, n).astype(np.float32)) if lod else None
     kids = t(rng.integers(0, 4, n).astype(np.int32)) if lod else None
-    bins = bin_gaussians(p.xy, p.depth, p.radius, p.valid, W, H, *tile,
-                         1 << 16, ext=p.ext, reff2=p.reff2)
+    bins = bin_gaussians(p.xy, p.depth, p.radius, p.valid, width, height,
+                         *tile, 1 << 16, ext=p.ext, reff2=p.reff2)
     feats = blend_features(p.xy, p.conic, p.opacity,
                            t(rng.uniform(0, 1, (n, 3)).astype(np.float32)),
                            1.0 / torch.clamp_min(p.depth, 1e-6), ts, kids)
     return (feats, bins.sorted_gid, bins.tile_starts, bins.tile_counts), \
-        dict(width=W, height=H, tile_w=tile[0], tile_h=tile[1],
+        dict(width=width, height=height, tile_w=tile[0], tile_h=tile[1],
              use_lod=lod)
 
 
@@ -120,8 +132,9 @@ def test_cuda_backward_matches_plain(case, cuda_device):
     args, kw = _inputs(cuda_device, **CASES[case])
     _, final_t, n_contrib, _ = rasterize_cuda.blend_forward(*args, **kw)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    g_img4 = torch.randn((4, H, W), generator=gen, device=cuda_device)
-    g_ft = torch.randn((H, W), generator=gen, device=cuda_device)
+    h, w = kw["height"], kw["width"]
+    g_img4 = torch.randn((4, h, w), generator=gen, device=cuda_device)
+    g_ft = torch.randn((h, w), generator=gen, device=cuda_device)
     bargs = args + (final_t, n_contrib, g_img4, g_ft)
     launches = rasterize_cuda.blend_backward.launches
     got = rasterize_cuda.blend_backward(*bargs, **kw)
