@@ -11,17 +11,20 @@ Phases (any failure raises and exits non-zero):
      per source, started together (build seconds; ptxas registers and
      spills of every kernel specialisation).
   2. kernel B1 (blend forward) vs its plain version on small scenes (LOD
-     on/off, seen, 16x16, 32x32, 16x8, 8x128, 8x4, 8x8, 8x24 and 12x8
-     tiles, sticky early stop across entry batches, dense overlap with
-     saturated pixels, 250x190 frames whose last tile row and column lie
-     partly outside the image): images,
-     inverse depth and final T to atol 2e-5, n_contrib and seen exact; then
-     one 1080p bench frame: image to atol 1e-4, share of pixels whose
-     n_contrib differs <= 1e-4.
+     on/off, seen, 16x16, 32x32, 16x8, 8x128, 8x4, 8x8, 8x24, 12x8 and
+     10x6 tiles, i.e. 4, 2 and 1 pixels a thread and a 60-pixel tile whose
+     last warp is partial; sticky early stops past several 32-entry
+     batches, at 4 and 1 pixels a thread; dense overlap with saturated
+     pixels; 250x190 frames whose last tile row and column lie partly
+     outside the image): images, inverse depth and final T to atol 2e-5,
+     n_contrib and seen exact; then one 1080p bench frame: image to atol
+     1e-4, share of pixels whose n_contrib differs <= 1e-4, and a second
+     launch bitwise equal to the first.
   2b. kernel B2 (blend backward) vs its plain version on the same small
      scenes and the 1080p bench frame, on B1's final T and n_contrib and
      seeded random cotangents: per-entry gradients to atol 3e-4 times the
-     largest plain magnitude; two launches bitwise equal. The tiles reach
+     largest plain magnitude; two launches bitwise equal (B2 takes tiles of
+     a multiple of 32 pixels, so not the 10x6 ones). The tiles reach
      each of B2's launch shapes (4, 2 and 1 pixels a thread, one warp and
      several), the sticky cases walk 600 entries (19 batches, the entry
      ring wraps) and the ragged frames have partial tiles.
@@ -75,6 +78,7 @@ OPS_EVAL, OPS_APPLY = 18, 9
 # the suffix update, the clip test, dpower, u, v, the three second moments
 # and the four colour products (the warp reductions are not counted)
 B2_OPS_NEED, B2_OPS_APPLY = 14, 24
+B1_BATCH = 32        # entries per shared-memory batch of kernel B1
 GRAD_SCALED_ATOL = 3e-4
 TRAIN_STEPS = 8
 
@@ -475,8 +479,9 @@ def main():
          True),
         ("16x8 sticky", (16, 8), dict(n=600, seed=7, stacked=True), True),
         ("16x16 sticky", (16, 16), dict(n=600, seed=7, stacked=True), True),
-        # B2 runs 4 pixels a thread on the tiles above, 2 on 8x8 and 8x24,
-        # 1 on 8x4 and 12x8; ragged frames cut the last tile row and column
+        # B1 and B2 run 4 pixels a thread on the tiles above, 2 on 8x8 and
+        # 8x24, 1 on 8x4 and 12x8; ragged frames cut the last tile row and
+        # column
         ("8x4", (8, 4), dict(n=2000, seed=11), False),
         ("8x4 sticky", (8, 4), dict(n=600, seed=7, stacked=True), True),
         ("8x8 lod", (8, 8), dict(n=2000, seed=13, lod=True), False),
@@ -486,6 +491,10 @@ def main():
                                           frame=(250, 190)), False),
         ("32x32 ragged seen", (32, 32), dict(n=2000, seed=19,
                                              frame=(250, 190)), True),
+        # B1 alone: one pixel a thread in row order, the last warp partial
+        ("10x6 partial warp seen", (10, 6), dict(n=2000, seed=21), True),
+        ("10x6 ragged lod", (10, 6), dict(n=2000, seed=23, lod=True,
+                                          frame=(250, 190)), False),
     ]
     b2_cases = {}      # B2's cases: the scenes above, once each
     for name, (tw, th), kw, want_seen in cases:
@@ -510,9 +519,11 @@ def main():
                 f"n_contrib {nc_sat}")
             if float(ref[1].min()) >= 2e-4:
                 raise AssertionError(f"{name}: no saturated pixel")
-            if "sticky" in name and nc_sat <= tw * th:
-                raise AssertionError(f"{name}: stop does not cross a batch")
-        b2_cases.setdefault(name.replace(" seen", ""), (args, opts, got))
+            if "sticky" in name and nc_sat <= 2 * B1_BATCH:
+                raise AssertionError(f"{name}: stop does not cross several "
+                                     "entry batches")
+        if tw * th % 32 == 0:
+            b2_cases.setdefault(name.replace(" seen", ""), (args, opts, got))
 
     width, height = 1920, 1080
     cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
@@ -558,6 +569,12 @@ def main():
     ref = blend_forward_plain(*frame_args, **frame_opts)
     max_err = max(max_err, compare("1080p bench frame", got, ref,
                                    FRAME_ATOL, FRAME_NC_SHARE))
+    again = kernel(*frame_args, **frame_opts)
+    same = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    log(f"  1080p bench frame: second launch bitwise equal {same}")
+    if not same:
+        raise AssertionError("kernel B1 is not repeatable at the bench frame")
+    del again
 
     # kernel, plain version and bound at the bench frame
     kernel_ms = cuda_time_ms(lambda: kernel(*frame_args, **frame_opts), 20,

@@ -49,8 +49,8 @@ class RasterizerConfig:
     # only max_dup overflow. "xla" = the plain scan path (circle rects,
     # `truncated` also trips when a tile exceeds k_max entries).
     backend: str = "xla"
-    # Pixel tile shape; the CUDA kernel runs one thread per pixel, so
-    # tile_w * tile_h <= 1024.
+    # Pixel tile shape; the CUDA kernels cover a tile with one block, so
+    # tile_w * tile_h <= 1024 (the backward: a multiple of 32).
     tile_h: int = 8
     tile_w: int = 128
     # Alpha-aware tight tile coverage (pallas backend only): identical images

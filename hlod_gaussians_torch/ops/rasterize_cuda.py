@@ -5,7 +5,11 @@ B1 `blend_forward` replaces hlod_gaussians_tpu/ops/rasterize_pallas.py
 ::blend_forward, B2 `blend_backward` replaces ::blend_backward (the Pallas
 TPU kernels). The sources are `hlod_gaussians_torch/csrc/blend_forward.cu`
 and `csrc/blend_backward.cu`; their header notes give the design and what
-bounds each.
+bounds each. Both cover a tile with one block: 4, 2 or 1 pixels a thread,
+the most that splits the tile into whole warp patches. B1 takes any tile of
+1 to 1024 pixels (one pixel a thread, the last warp partial, where the
+pixel count is not a multiple of 32); B2 only tiles of a multiple of 32
+pixels.
 
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC` compiles each source into a shared library with a
@@ -161,11 +165,13 @@ def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
             height=height, tile_w=tile_w, tile_h=tile_h, t_eps=t_eps,
             alpha_min=alpha_min, use_lod=use_lod, want_seen=want_seen)
 
+    if not (tile_w > 0 and tile_h > 0 and tile_w * tile_h <= 1024):
+        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel covers a tile "
+                         "with one block of up to 1024 threads (4, 2 or 1 "
+                         "pixels a thread), so tile_w * tile_h must be in "
+                         "[1, 1024]")
     gw, gh = tile_grid(width, height, tile_w, tile_h)
     n = feats.shape[0]
-    if not 0 < tile_w * tile_h <= 1024:
-        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel runs one thread "
-                         "per pixel, so tile_w * tile_h must be in [1, 1024]")
     _check_entries(feats, sorted_gid, tile_starts, tile_counts, gw, gh)
 
     dev = feats.device

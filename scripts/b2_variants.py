@@ -119,10 +119,10 @@ def build_all(jobs, outdir):
     nvcc = rasterize_cuda._nvcc()
     procs = {}
     for i, (name, text) in enumerate(jobs.items()):
-        src = os.path.join(outdir, f"b2_{i}.cu")
+        src = os.path.join(outdir, f"variant_{i}.cu")
         with open(src, "w") as fh:
             fh.write(text)
-        lib = os.path.join(outdir, f"b2_{i}.so")
+        lib = os.path.join(outdir, f"variant_{i}.so")
         procs[name] = (lib, subprocess.Popen(
             [nvcc, *rasterize_cuda.NVCC_FLAGS, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -135,12 +135,10 @@ def build_all(jobs, outdir):
     return out
 
 
-def registers(log, p=None):
-    """Registers of the flat kernel specialisation with p pixels per
-    thread, from nvcc's -Xptxas -v output (p=None: a kernel templated on
-    LOD alone)."""
-    want = re.compile(r"blend_backward_kernel\w*ILb0"
-                      + (r"ELi%dE" % p if p else r"E"))
+def registers(log, want):
+    """Registers of the kernel specialisation whose mangled name matches the
+    regex `want`, from nvcc's -Xptxas -v output."""
+    want = re.compile(want)
     current = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -150,6 +148,39 @@ def registers(log, p=None):
         if m and current and want.search(current):
             return int(m.group(1))
     return None
+
+
+def bench_frame(dev):
+    """The 1080p bench frame of chip_smoke.py [2]: B1's inputs (feats,
+    sorted_gid, tile_starts, tile_counts), its keywords and the config."""
+    import torch
+    from chip_smoke import blend_inputs, load_bench_scene
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.ops import gaussian_math
+    from hlod_gaussians_torch.ops import sh as sh_ops
+    from hlod_gaussians_torch.utils.camera import make_camera
+    width, height, tw, th = 1920, 1080, 32, 32
+    cfg = RasterizerConfig(backend="pallas", tile_w=tw, tile_h=th,
+                           max_dup=352 * 1024, tight_binning=True)
+    scene = load_bench_scene()
+    t = lambda a: torch.as_tensor(a, device=dev)
+    quats = t(scene["quat"])
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+    means = t(scene["xyz"])
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, width, height,
+                      device=dev)
+    proj = gaussian_math.project_gaussians(
+        means, gaussian_math.compute_cov3d(torch.exp(t(scene["log_scale"])),
+                                           quats),
+        torch.sigmoid(t(scene["opacity_logit"][:, 0])), cam.world_view,
+        cam.full_proj, width, height, cam.focal_x, cam.focal_y,
+        cam.tan_fovx, cam.tan_fovy, dilation=cfg.dilation, near=cfg.near)
+    shs = torch.cat([t(scene["f_dc"]), t(scene["f_rest"])], dim=1)
+    color = sh_ops.sh_color(3, shs, means, cam.campos)
+    bins, feats = blend_inputs(proj, color, None, None, width, height, tw,
+                               th, cfg.max_dup, tight=True)
+    fargs = (feats, bins.sorted_gid, bins.tile_starts, bins.tile_counts)
+    return fargs, dict(width=width, height=height, tile_w=tw, tile_h=th), cfg
 
 
 def main():
@@ -165,15 +196,11 @@ def main():
         print("b2_variants: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import (blend_inputs, cuda_time_ms, load_bench_scene,
-                            nvidia_smi_line)
-    from hlod_gaussians_torch.config import RasterizerConfig
-    from hlod_gaussians_torch.ops import gaussian_math, rasterize_cuda
-    from hlod_gaussians_torch.ops import sh as sh_ops
+    from chip_smoke import cuda_time_ms, nvidia_smi_line
+    from hlod_gaussians_torch.ops import rasterize_cuda
     from hlod_gaussians_torch.ops.binning import tile_grid
     from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
                                                         tile_image)
-    from hlod_gaussians_torch.utils.camera import make_camera
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -195,29 +222,9 @@ def main():
 
         # the bench frame of chip_smoke.py [2] / [2b]
         dev = torch.device("cuda")
-        width, height, tw, th = 1920, 1080, 32, 32
-        cfg = RasterizerConfig(backend="pallas", tile_w=tw, tile_h=th,
-                               max_dup=352 * 1024, tight_binning=True)
-        scene = load_bench_scene()
-        t = lambda a: torch.as_tensor(a, device=dev)
-        quats = t(scene["quat"])
-        quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
-        means = t(scene["xyz"])
-        cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, width, height,
-                          device=dev)
-        proj = gaussian_math.project_gaussians(
-            means, gaussian_math.compute_cov3d(torch.exp(t(scene["log_scale"])),
-                                               quats),
-            torch.sigmoid(t(scene["opacity_logit"][:, 0])), cam.world_view,
-            cam.full_proj, width, height, cam.focal_x, cam.focal_y,
-            cam.tan_fovx, cam.tan_fovy, dilation=cfg.dilation,
-            near=cfg.near)
-        shs = torch.cat([t(scene["f_dc"]), t(scene["f_rest"])], dim=1)
-        color = sh_ops.sh_color(3, shs, means, cam.campos)
-        bins, feats = blend_inputs(proj, color, None, None, width, height,
-                                   tw, th, cfg.max_dup, tight=True)
-        fargs = (feats, bins.sorted_gid, bins.tile_starts, bins.tile_counts)
-        opts = dict(width=width, height=height, tile_w=tw, tile_h=th)
+        fargs, opts, cfg = bench_frame(dev)
+        width, height, tw, th = (opts[k] for k in ("width", "height",
+                                                   "tile_w", "tile_h"))
         _, final_t, n_contrib, _ = rasterize_cuda.blend_forward(*fargs,
                                                                 **opts)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -260,11 +267,13 @@ def main():
                     lambda: run(libs[name]), args.reps, warmup=3))
         for name, row in rows.items():
             if "kMaxP" not in jobs[name]:   # an older design: a thread a pixel
-                regs = registers(built[name][1])
+                regs = registers(built[name][1],
+                                 r"blend_backward_kernel\w*ILb0EE")
                 threads, smem = 1024, 3 * 32 * 16 + 32 * 32 * 10 * 4
             else:                       # P pixels a thread at 32x32 tiles
                 p = int(re.search(r"kMaxP = (\d+);", jobs[name]).group(1))
-                regs = registers(built[name][1], p=p)
+                regs = registers(built[name][1],
+                                 r"blend_backward_kernel\w*ILb0ELi%dE" % p)
                 threads = 1024 // p
                 smem = smem_bytes(jobs[name], threads)
             row.update(registers=regs, threads=threads, smem=smem,

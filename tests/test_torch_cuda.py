@@ -40,6 +40,15 @@ CASES = {
                             frame=(90, 61)),
     "32x32-ragged": dict(tile=(32, 32), n=300, seed=19, frame=(90, 61)),
 }
+# B1 alone: its sticky stop past several 32-entry batches at 4 pixels a
+# thread over two warps, and 60-pixel tiles, which it runs one pixel a
+# thread in row order with a partial last warp (B2 takes none)
+B1_CASES = dict(CASES, **{
+    "16x16-sticky": dict(tile=(16, 16), n=600, seed=7, stacked=True),
+    "10x6-partial-warp": dict(tile=(10, 6), n=300, seed=21),
+    "10x6-ragged-lod": dict(tile=(10, 6), n=300, seed=23, lod=True,
+                            frame=(90, 61)),
+})
 
 
 @pytest.fixture
@@ -88,15 +97,19 @@ def _inputs(dev, tile, n, seed, big=False, lod=False, stacked=False,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("want_seen", [True, False], ids=["seen", "noseen"])
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(B1_CASES))
 def test_cuda_kernel_matches_plain(case, want_seen, cuda_device):
-    c = dict(CASES[case])
-    args, kw = _inputs(cuda_device, **c)
+    """Kernel B1 against blend_forward_plain: image and final T to 2e-5,
+    n_contrib and seen exactly; two launches give the same bits."""
+    args, kw = _inputs(cuda_device, **B1_CASES[case])
     kw["want_seen"] = want_seen
     launches = rasterize_cuda.blend_forward.launches
     got = rasterize_cuda.blend_forward(*args, **kw)
+    again = rasterize_cuda.blend_forward(*args, **kw)
     torch.cuda.synchronize()
-    assert rasterize_cuda.blend_forward.launches == launches + 1
+    assert rasterize_cuda.blend_forward.launches == launches + 2
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
     ref = blend_forward_plain(*args, **kw)
     torch.testing.assert_close(got[0], ref[0], atol=ATOL, rtol=0)
     torch.testing.assert_close(got[1], ref[1], atol=ATOL, rtol=0)
