@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (hlod_gaussians_torch) on one NVIDIA
 GPU: builds the blend kernels, holds each to its plain PyTorch version,
-serves flat and hierarchical-LOD renders and takes flat training steps
-through the public entry points, and prints the kernel table.
+serves flat and hierarchical-LOD renders, takes flat training steps, and
+builds, streams, evaluates and maintains a full-size LOD tree through the
+public entry points, and prints the kernel table.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -41,7 +42,31 @@ Phases (any failure raises and exits non-zero):
      render, SH 3, the serving config): every step untruncated with a
      finite loss and exactly one B1 and one B2 launch, the last loss below
      the first; step median and the forward / backward / Adam split.
-  6. the {"kernels": [...]} line, then the device line.
+  6. full-size hierarchical LOD: hierarchy.build.build_hierarchy on the
+     card over the JAX package's LOD bench leaves (2^19 points, bench.py
+     :168-176, SH widened to degree 3): the 1,048,575-node tree passes
+     sanity_check_hierarchy and round-trips through a .dhier file into a
+     state (build and file seconds); parent cache and interp table.
+  7. viewer stream: render.render_lod_stream at 1920x1080 over the 26
+     yawing bench cameras at tau 0 and 15, 6 warm-up and 20 timed frames
+     each: frame median (CUDA events) and host wall, the path, budget, md
+     and truncated frames of the regulation, exactly one B1 launch a frame.
+  8. render_lod_auto (a persistent md_state) equals the settled stream's
+     last frame (n_selected, image to 1e-4), and the plain (xla) path at
+     tau 15 and tau 3 (n_selected equal, image to 1e-4).
+  9. eval.eval_views: the tau sweep (0, 3, 6, 15) on the box metric over 4
+     cameras, against the leaves' flat render: PSNR at tau 0 >= at tau 15,
+     mean_rendered never rising and lower at tau 15 than at tau 0, no
+     truncated or capped view.
+  10. viewer maintenance at tau 3: 30 frames of incremental_cut_step (the
+     camera walks in for 10, then stands), each a proper cut rendered with
+     render_lod(cut_mask) and fed to ActiveRowCache (fetched and evicted
+     rows a frame); the still frames outnumber the tree's height and end at
+     the size rule's cut read from the root down.
+  11. kernel B1 at the tau-0 stream frame: against its plain version, the
+     bare launch and the wrapper timed, the bound from the frame's
+     evaluated, candidate and applied pairs with the LOD alpha's operations.
+  12. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -78,9 +103,22 @@ OPS_EVAL, OPS_APPLY = 18, 9
 # the suffix update, the clip test, dpower, u, v, the three second moments
 # and the four colour products (the warp reductions are not counted)
 B2_OPS_NEED, B2_OPS_APPLY = 14, 24
+# with LOD, per candidate pair (power <= 0 and above the kernel's exp-free
+# reject, log(alpha_min / opacity) - 0.05) also 1-alpha, the max, log,
+# (1/kids)*log, exp, t*alpha, 1-t, 1-pw, their product and the sum: ten more,
+# two of them transcendental
+OPS_LOD = 10
 B1_BATCH = 32        # entries per shared-memory batch of kernel B1
 GRAD_SCALED_ATOL = 3e-4
 TRAIN_STEPS = 8
+# the JAX package's LOD bench tree (bench.py:145-253): 2^19 leaves, a
+# 1,048,575-node tree, 26 yawing 1080p cameras, 6 warm-up and 20 timed
+# stream frames a granularity
+LOD_LEAVES = 1 << 19
+STREAM_TAUS = (0.0, 15.0)
+STREAM_WARM, STREAM_TIMED = 6, 20
+EVAL_TAUS = (0.0, 3.0, 6.0, 15.0)
+MAINT_FRAMES, MAINT_MOVING = 30, 10
 
 
 def log(*a):
@@ -207,12 +245,17 @@ def compare(name, got, ref, atol, nc_share=0.0):
     return max(img_err, ft_err)
 
 
-def work_of_frame(feats, bins, width, height, tile_w, tile_h, t_eps,
-                  alpha_min):
-    """(evaluated, applied) (entry, pixel) pairs of the serial loop on these
-    inputs: a replay of the plain version's control flow that counts, per
-    pixel, the entries it evaluates up to its stop."""
+def work_of_frame(feats, sorted_gid, tile_starts, tile_counts, width,
+                  height, tile_w, tile_h, t_eps, alpha_min, use_lod=False):
+    """(evaluated, applied, candidate) (entry, pixel) pairs of the serial
+    loop on these inputs: a replay of the plain version's control flow that
+    counts, per pixel, the entries it evaluates up to its stop; candidates
+    are the evaluated pairs with power <= 0 above the kernel's exp-free
+    reject, which alone take the (LOD) alpha."""
+    import math
+
     import torch
+    from hlod_gaussians_torch.ops.rasterize_xla import F_OP
     from hlod_gaussians_torch.ops.rasterize_xla import (entry_alpha,
                                                         tile_pixels)
     px, py, inside = tile_pixels(width, height, tile_w, tile_h, feats.device)
@@ -221,13 +264,16 @@ def work_of_frame(feats, bins, width, height, tile_w, tile_h, t_eps,
     done = ~inside
     evaluated = torch.zeros((), dtype=torch.int64, device=feats.device)
     applied = torch.zeros_like(evaluated)
-    for k in range(int(bins.tile_counts.max())):
-        live = (k < bins.tile_counts)[:, None] & ~done
+    candidates = torch.zeros_like(evaluated)
+    log_amin = math.log(alpha_min) - 0.05
+    for k in range(int(tile_counts.max())):
+        live = (k < tile_counts)[:, None] & ~done
         evaluated += live.sum()
-        f = feats[bins.sorted_gid[torch.clamp(bins.tile_starts + k, 0,
-                                              bins.sorted_gid.shape[0] - 1)
-                                  ].long()]
-        alpha, power = entry_alpha(f, pxf, pyf, use_lod=False)
+        f = feats[sorted_gid[torch.clamp(tile_starts + k, 0,
+                                         sorted_gid.shape[0] - 1)].long()]
+        alpha, power = entry_alpha(f, pxf, pyf, use_lod=use_lod)
+        candidates += (live & (power <= 0.0) & (
+            power >= log_amin - torch.log(f[:, F_OP:F_OP + 1]))).sum()
         pre = live & (power <= 0.0) & (alpha >= alpha_min)
         test_t = t_run * (1.0 - alpha)
         trigger = pre & (test_t < t_eps)
@@ -235,7 +281,7 @@ def work_of_frame(feats, bins, width, height, tile_w, tile_h, t_eps,
         applied += apply.sum()
         t_run = torch.where(apply, test_t, t_run)
         done = done | trigger
-    return int(evaluated), int(applied)
+    return int(evaluated), int(applied), int(candidates)
 
 
 def check_backward(name, args, opts, fwd, gen):
@@ -419,6 +465,480 @@ def train_phase(ts, cam_args, gt, bg, cfg, width, height, extent=8.0):
                 adam_ms=statistics.median(adam_times))
 
 
+def lod_bench_leaves(n=LOD_LEAVES):
+    """The leaves of the JAX package's LOD bench tree (bench.py:168-176):
+    positions N(0, 10) shifted +30 in z, log-normal scales, random unit
+    quaternions, opacity U(0.3, 0.9), from default_rng(0); the SH widened to
+    degree 3, the DC drawn there and 15 rest coefficients N(0, 0.05) after
+    it from the same generator."""
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 10.0
+    pts[:, 2] += 30.0
+    scales = np.exp(rng.normal(size=(n, 3)) * 0.3 - 3.2).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    ops = rng.uniform(0.3, 0.9, n).astype(np.float32)
+    dc = rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.3
+    rest = rng.normal(size=(n, 15, 3)).astype(np.float32) * 0.05
+    return pts, scales, quats, ops, np.concatenate([dc, rest], axis=1)
+
+
+def lod_bench_tree(dev, n=LOD_LEAVES):
+    """Build the bench tree on `dev`, check it, and round-trip it through a
+    .dhier file as a user would (the conversion of pipeline/full_train.py
+    :157-163). Returns (state, hierarchy, build seconds, (file seconds,
+    file bytes))."""
+    import tempfile
+
+    import torch
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    from hlod_gaussians_torch.hierarchy import build as hb
+    from hlod_gaussians_torch.hierarchy.cut import sanity_check_hierarchy
+    from hlod_gaussians_torch.train.post import create_from_dhier
+    leaves = lod_bench_leaves(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = hb.build_hierarchy(*leaves, device=dev)
+    build_s = time.perf_counter() - t0
+    m = h.nodes.shape[0]
+    sanity_check_hierarchy(h.nodes, np.ones(m, bool))
+    d = dhier_io.DHier(
+        sh_degree=3, pos=h.pos, quat=h.quat,
+        log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
+        opacity=np.clip(h.opacity, 1e-4, 1.0 - 1e-6).astype(np.float32),
+        shs=h.sh.astype(np.float32), nodes=h.nodes)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.dhier")
+        dhier_io.save_dhier(path, d)
+        loaded = dhier_io.load_dhier(path)
+        file_bytes = os.path.getsize(path)
+    file_s = time.perf_counter() - t0
+    for k in d._fields:
+        if not np.array_equal(np.asarray(getattr(loaded, k)),
+                              np.asarray(getattr(d, k))):
+            raise AssertionError(f".dhier round trip changed {k}")
+    state = create_from_dhier(loaded, capacity=m, device=dev)
+    return state, h, build_s, (file_s, file_bytes)
+
+
+def lod_bench_camera(i, width, height, dev):
+    """The JAX package's LOD bench cameras (bench.py:200-207): at the
+    origin, yawed 0.02 rad a step."""
+    from hlod_gaussians_torch.utils.camera import make_camera
+    a = 0.02 * i
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]], np.float32)
+    return make_camera(R, np.zeros(3), 1.2, 0.8, width, height, device=dev)
+
+
+def lod_target(tau, cam, width):
+    from hlod_gaussians_torch import render
+    return max(float(render.tau_to_threshold(tau, float(cam.tan_fovx),
+                                             width)), 1e-9)
+
+
+def stream_frames(lod, cams, tau, frames, kernel):
+    """`frames` frames of render_lod_stream over the cameras in turn from a
+    fresh state. Returns (state, per-frame (CUDA-event ms, host ms, B1
+    launches), the last frame's (image, n_selected, truncated))."""
+    import torch
+    from hlod_gaussians_torch import render
+    act, state = lod["act"], lod["state"]
+    st, rows, events = {}, [], []
+    target = lod_target(tau, cams[0], lod["width"])
+    for i in range(frames):
+        cam = cams[i % len(cams)]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        before = kernel.launches
+        t0 = time.perf_counter()
+        a.record()
+        with torch.no_grad():
+            out, n_sel = render.render_lod_stream(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                state.nodes, state.alive, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, lod["bg"], target,
+                st, pcache=lod["pcache"], interp_table=lod["itab"],
+                sh_degree=3, width=lod["width"], height=lod["height"],
+                cfg=lod["cfg"], k_max=512, use_frustum=False)
+        b.record()
+        rows.append([(time.perf_counter() - t0) * 1e3,
+                     kernel.launches - before])
+        events.append((a, b))
+    torch.cuda.synchronize()
+    for (a, b), row in zip(events, rows):
+        row.insert(0, a.elapsed_time(b))
+    return st, rows, (out.image, int(n_sel), bool(out.truncated))
+
+
+def lod_auto(lod, cam, tau, cfg, md_state, k_max=512):
+    import torch
+    from hlod_gaussians_torch import render
+    act, state = lod["act"], lod["state"]
+    with torch.no_grad():
+        out, n_sel = render.render_lod_auto(
+            act.means3d, act.scales, act.quats, act.opacities, act.shs,
+            state.nodes, state.alive, cam.world_view, cam.full_proj,
+            cam.campos, cam.tan_fovx, cam.tan_fovy, lod["bg"],
+            lod_target(tau, cam, lod["width"]), None, lod["pcache"],
+            lod["itab"], sh_degree=3, width=lod["width"],
+            height=lod["height"], cfg=cfg, k_max=k_max, use_frustum=False,
+            auto_max_dup=md_state is not None, md_state=md_state)
+    return out, int(n_sel)
+
+
+def top_down_cut(nodes, size, target):
+    """The size rule read from the root down: a node is in the cut when it
+    is below the target (or a leaf) and every ancestor is at or above it.
+    Where a child projects larger than its parent the per-node rule
+    (expand_to_size_dynamic) is no proper cut; this one always is, and it is
+    where incremental_cut_step settles from the root."""
+    import torch
+    from hlod_gaussians_torch.models.gaussians import (NODE_CHILD_COUNT,
+                                                       NODE_DEPTH,
+                                                       NODE_PARENT)
+    parent = nodes[:, NODE_PARENT].long().clamp_min(0)
+    depth = nodes[:, NODE_DEPTH]
+    open_path = nodes[:, NODE_PARENT] < 0
+    for d in range(1, int(depth.max()) + 1):
+        open_path = torch.where(
+            depth == d, open_path[parent] & (size[parent] >= target),
+            open_path)
+    return open_path & ((size < target) | (nodes[:, NODE_CHILD_COUNT] == 0))
+
+
+def capture_b1_inputs(run):
+    """B1's inputs as the render hands them to the kernel's wrapper, with
+    the render stopped there (run() renders one frame)."""
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    calls, kernel = [], rasterize_cuda.blend_forward
+
+    class Captured(Exception):
+        pass
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        raise Captured
+
+    rasterize_cuda.blend_forward = record
+    try:
+        run()
+    except Captured:
+        pass
+    finally:
+        rasterize_cuda.blend_forward = kernel
+    (fargs, kw), = calls
+    return fargs, {k: kw[k] for k in ("width", "height", "tile_w", "tile_h",
+                                      "t_eps", "alpha_min", "use_lod")}
+
+
+def bare_launch_ms(fargs, opts, reps=20):
+    """B1's bare launch (the C entry point into preallocated outputs), the
+    median of `reps` CUDA-event timings."""
+    import torch
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.binning import tile_grid
+    feats, sorted_gid, tile_starts, tile_counts = fargs
+    w, h, tw, th = (opts[k] for k in ("width", "height", "tile_w",
+                                      "tile_h"))
+    gw, gh = tile_grid(w, h, tw, th)
+    img4 = torch.empty((4, h, w), device=feats.device)
+    final_t = torch.empty((h, w), device=feats.device)
+    n_contrib = torch.empty((h, w), dtype=torch.int32, device=feats.device)
+    lib = rasterize_cuda._library("blend_forward")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.blend_forward_launch(
+            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
+            tile_counts.data_ptr(), gw * gh, gw, tw, th, w, h,
+            float(opts["t_eps"]), float(opts["alpha_min"]),
+            int(opts["use_lod"]), img4.data_ptr(), final_t.data_ptr(),
+            n_contrib.data_ptr(), None, stream)
+        if err:
+            raise RuntimeError(f"blend_forward launch failed ({err})")
+    return cuda_time_ms(launch, reps, warmup=3)
+
+
+def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
+    """Phases 6-11 on the full-size LOD bench tree; returns the B1 and B2
+    launches of each path, B1's numbers at the tau-0 stream frame and the
+    largest kernel-vs-plain error."""
+    import torch
+    from hlod_gaussians_torch import eval as eval_mod
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.hierarchy import cut as cut_mod
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
+    from hlod_gaussians_torch.utils.camera import make_camera
+    from hlod_gaussians_torch.viewer import maintenance as maint
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    max_err = 0.0
+
+    # ---- 6. full-size LOD: build and round trip ---------------------------
+    log(f"[6] hierarchy build on the card: {n_leaves} leaves (the LOD "
+        "bench tree, SH 3), .dhier round trip")
+    lstate, tree, build_s, (file_s, file_bytes) = lod_bench_tree(
+        dev, n_leaves)
+    m = tree.nodes.shape[0]
+    if m != 2 * n_leaves - 1:
+        raise AssertionError(f"{m} nodes for {n_leaves} leaves")
+    lact = gm.activate(lstate)
+    lod = dict(state=lstate, act=lact, width=width, height=height, bg=bg,
+               cfg=RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                                    max_dup=1 << 20, tight_binning=True))
+    t0 = time.perf_counter()
+    lod["pcache"] = cut_mod.build_parent_cache(
+        lstate.nodes, lact.means3d, torch.max(lact.scales, dim=1).values)
+    lod["itab"] = cut_mod.build_interp_table(
+        dict(means3d=lact.means3d, scales=lact.scales, quats=lact.quats,
+             opacities=lact.opacities, shs=lact.shs), lstate.nodes)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    log(f"  {m} nodes, height {int(tree.nodes[:, 0].max())}; build "
+        f"{build_s:.2f} s on the card (kd split, merge, alignment and the "
+        f"host compaction), .dhier of {file_bytes} bytes saved + loaded in "
+        f"{file_s:.2f} s, parent cache "
+        f"+ interp table {tables_s:.3f} s [{smi}]")
+
+    # ---- 7. viewer stream ----------------------------------------------------
+    log(f"[7] viewer stream: render_lod_stream {width}x{height}, "
+        f"{STREAM_WARM} "
+        f"warm-up + {STREAM_TIMED} timed frames a tau over 26 cameras")
+    lod_cams = [lod_bench_camera(i, width, height, dev) for i in range(26)]
+    frames = STREAM_WARM + STREAM_TIMED
+    kernel.launches = kernel_b2.launches = 0
+    streams = {tau: stream_frames(lod, lod_cams, tau, frames, kernel)
+               for tau in STREAM_TAUS}
+    stream_launches, stream_b2 = kernel.launches, kernel_b2.launches
+    stream_ms = {}
+    for tau, (st, rows, (img, n_sel, trunc)) in streams.items():
+        ev = [r[0] for r in rows[STREAM_WARM:]]
+        host = [r[1] for r in rows[STREAM_WARM:]]
+        per_frame = [r[2] for r in rows]
+        path = st["pending"][1]
+        stream_ms[tau] = statistics.median(ev)
+        log(f"  tau {tau:4.1f}: frame median {statistics.median(ev):.3f} ms "
+            f"(CUDA events; min {min(ev):.3f}, max {max(ev):.3f}), host "
+            f"wall median {statistics.median(host):.3f} ms; path "
+            f"{'masked' if path == 'MASKED' else 'budgeted'}, budget "
+            f"{st['budget']}, md {st['md']}, n_truncated_frames "
+            f"{st.get('n_truncated_frames', 0)}; last frame n_selected "
+            f"{n_sel}, truncated {trunc}; B1 launches a frame {per_frame} "
+            f"[{smi}]")
+        if (per_frame != [1] * frames or trunc
+                or not bool(torch.isfinite(img).all())
+                or tuple(img.shape) != (3, height, width)):
+            raise AssertionError(f"stream tau {tau}: launches {per_frame}, "
+                                 f"last frame truncated {trunc}")
+    if stream_b2 != 0:
+        raise AssertionError(f"{stream_b2} B2 launches while streaming")
+
+    # ---- 8. auto and plain ---------------------------------------------------
+    log("[8] render_lod_auto against the settled stream, and against the "
+        "plain (xla) path")
+    md_state = {}
+    kernel.launches = kernel_b2.launches = 0
+    last_cam = lod_cams[(frames - 1) % len(lod_cams)]
+    auto_out = {}
+    for tau in STREAM_TAUS + (3.0,):
+        out, n_sel = lod_auto(lod, last_cam, tau, lod["cfg"], md_state)
+        auto_out[tau] = (out, n_sel)
+    auto_launches, auto_b2 = kernel.launches, kernel_b2.launches
+    for tau in STREAM_TAUS:
+        (out, n_sel), (img, n_str, _) = auto_out[tau], streams[tau][2]
+        err = float((out.image - img).abs().max())
+        log(f"  tau {tau:4.1f}: auto n_selected {n_sel} vs stream {n_str}, "
+            f"max|d image| {err:.3e}, truncated {bool(out.truncated)}")
+        if n_sel != n_str or err > FRAME_ATOL or bool(out.truncated):
+            raise AssertionError(f"auto and stream disagree at tau {tau}")
+    log(f"  md_state {({k: v for k, v in md_state.items()})}; B1 launches "
+        f"{auto_launches}")
+    plain_cfg = RasterizerConfig(backend="xla", tile_w=32, tile_h=32,
+                                 max_dup=1 << 22)
+    for tau in (15.0, 3.0):
+        t0 = time.perf_counter()
+        p_out, p_n = lod_auto(lod, last_cam, tau, plain_cfg, None,
+                              k_max=8192)
+        torch.cuda.synchronize()
+        (out, n_sel) = auto_out[tau]
+        err = float((p_out.image - out.image).abs().max())
+        log(f"  tau {tau:4.1f} vs plain: n_selected {n_sel} vs {p_n}, "
+            f"max|d image| {err:.3e}, plain truncated "
+            f"{bool(p_out.truncated)} ({time.perf_counter() - t0:.1f} s)")
+        if err > FRAME_ATOL or n_sel != p_n or bool(p_out.truncated):
+            raise AssertionError(f"LOD tau {tau} disagrees with the plain "
+                                 "path")
+        max_err = max(max_err, err)
+    del auto_out, p_out
+
+    # ---- 9. eval: the tau sweep ---------------------------------------------
+    eval_cams = lod_cams[::8][:4]
+    log(f"[9] eval_views: level_is_tau, box metric, taus {EVAL_TAUS}, "
+        f"{len(eval_cams)} cameras, ground truth the leaves' flat render")
+    eval_cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                                max_dup=1 << 21, tight_binning=True)
+    leaf = lstate.alive & (lstate.nodes[:, gm.NODE_CHILD_COUNT] == 0)
+    gts = []
+    for cam in eval_cams:
+        with torch.no_grad():
+            out = render.render_arrays(
+                lact.means3d, lact.scales, lact.quats, lact.opacities,
+                lact.shs, leaf, cam.world_view, cam.full_proj, cam.campos,
+                cam.tan_fovx, cam.tan_fovy, bg, sh_degree=3, width=width,
+                height=height, cfg=eval_cfg)
+        if bool(out.truncated):
+            raise AssertionError("ground-truth render truncated")
+        gts.append(torch.clamp(out.image, 0.0, 1.0))
+    warned = []
+    kernel.launches = kernel_b2.launches = 0
+    t0 = time.perf_counter()
+    table = eval_mod.eval_views(
+        lstate, eval_cams, gts, EVAL_TAUS, level_is_tau=True,
+        boxes=(tree.box_lo, tree.box_hi, tree.max_side), budget=1 << 20,
+        cfg=eval_cfg, warn=warned.append)
+    eval_s = time.perf_counter() - t0
+    eval_launches, eval_b2 = kernel.launches, kernel_b2.launches
+    for r in table:
+        log(f"  tau {r.level:4.1f}: PSNR {r.psnr:.3f}  SSIM {r.ssim:.4f}  "
+            f"GMSD {r.gmsd:.5f}  LPIPS {r.lpips}  mean rendered "
+            f"{r.mean_rendered:.1f}")
+    log(f"  {eval_s:.1f} s for {len(EVAL_TAUS) * len(eval_cams)} renders; "
+        f"B1 launches {eval_launches}; warnings {warned}")
+    # on the box metric a leaf projects 6 max_scale / distance, about 0.01
+    # here, above the tau-3 threshold (0.005): taus 0 and 3 may both select
+    # every leaf, so the count falls with tau but not at every step
+    rendered = [r.mean_rendered for r in table]
+    if (table[0].psnr < table[-1].psnr or rendered[0] <= rendered[-1]
+            or any(a < b for a, b in zip(rendered, rendered[1:]))
+            or len(warned) != 1 or "LPIPS" not in warned[0]):
+        raise AssertionError("the tau sweep is not monotone, or a view was "
+                             "truncated or capped")
+    del gts
+
+    # ---- 10. viewer maintenance ---------------------------------------------
+    log(f"[10] viewer maintenance at tau 3: {MAINT_FRAMES} frames of "
+        f"incremental_cut_step, the camera walking in for {MAINT_MOVING}, "
+        "then still; render_lod(cut_mask) and ActiveRowCache each frame")
+    nodes, alive = lstate.nodes, lstate.alive
+    max_scale = torch.max(lact.scales, dim=1).values
+    target = lod_target(3.0, lod_cams[0], width)
+    height_of_tree = int(tree.nodes[:, 0].max())
+    cache = maint.ActiveRowCache(
+        {k: getattr(lact, k).cpu().numpy() for k in
+         ("means3d", "scales", "quats", "opacities", "shs")},
+        budget=1 << 19, device=dev)
+    active = torch.as_tensor(maint.initial_cut(nodes, alive), device=dev)
+    moves, sizes = [], []
+    kernel.launches = kernel_b2.launches = 0
+    for f in range(MAINT_FRAMES):
+        z = 0.5 * min(f, MAINT_MOVING - 1)
+        cam = make_camera(np.eye(3), np.array([0.0, 0.0, -z]), 1.2, 0.8, width,
+                     height, device=dev)
+        active, n_s, n_c = maint.incremental_cut_step(
+            nodes, lact.means3d, max_scale, alive, active, cam.campos,
+            target)
+        if not bool(cut_mod.is_hierarchy_cut(nodes, active, alive)):
+            raise AssertionError(f"maintenance frame {f}: not a proper cut")
+        with torch.no_grad():
+            out, n_sel = render.render_lod(
+                lact.means3d, lact.scales, lact.quats, lact.opacities,
+                lact.shs, nodes, alive, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, bg, target, None,
+                active, lod["pcache"], None, lod["itab"], sh_degree=3,
+                width=width, height=height, budget=cache.budget,
+                cfg=lod["cfg"], use_frustum=False)
+        fetched, evicted = cache.update(active)
+        moves.append((int(n_s), int(n_c), fetched, evicted))
+        sizes.append(int(n_sel))
+        if bool(out.truncated) or int(n_sel) > cache.budget:
+            raise AssertionError(f"maintenance frame {f}: truncated or over "
+                                 "the budget")
+    maint_launches, maint_b2 = kernel.launches, kernel_b2.launches
+    rule = cut_mod.expand_to_size_dynamic(
+        nodes, lact.means3d, max_scale, alive, cam.campos,
+        cam.world_view[:3, 2], target, use_frustum=False)
+    top_down = top_down_cut(nodes, rule.size, target)
+    converged = bool(torch.equal(active, top_down))
+    log("  frames (split, collapse, fetched, evicted): "
+        + " ".join(f"{a}/{b}/{c}/{d}" for a, b, c, d in moves))
+    log(f"  cut sizes {sizes}; tree height {height_of_tree}; after "
+        f"{MAINT_FRAMES - MAINT_MOVING} still frames equal to the size "
+        f"rule's cut read top-down: {converged}; the per-node rule "
+        f"(expand_to_size_dynamic) selects {int(rule.render_mask.sum())} "
+        f"nodes, {int((rule.render_mask != active).sum())} of them "
+        "different, where a child projects larger than its parent; B1 "
+        f"launches {maint_launches}")
+    if (not converged or moves[-1][:2] != (0, 0)
+            or MAINT_FRAMES - MAINT_MOVING <= height_of_tree
+            or maint_launches != MAINT_FRAMES):
+        raise AssertionError("maintenance did not reach the size rule's cut")
+    del cache
+
+    # ---- 11. kernel B1 at the tau-0 stream frame ---------------------------
+    log("[11] kernel B1 at the tau-0 stream frame (camera 0)")
+    st0 = streams[0.0][0]
+    st_copy = dict(st0, md=dict(st0["md"]))
+    st_copy.pop("pending")
+    cam = lod_cams[0]
+
+    def tau0_frame():
+        with torch.no_grad():
+            render.render_lod_stream(
+                lact.means3d, lact.scales, lact.quats, lact.opacities,
+                lact.shs, nodes, alive, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, bg,
+                lod_target(0.0, cam, width), st_copy, pcache=lod["pcache"],
+                interp_table=lod["itab"], sh_degree=3, width=width,
+                height=height, cfg=lod["cfg"], k_max=512, use_frustum=False)
+
+    lod_args, lod_opts = capture_b1_inputs(tau0_frame)
+    got = kernel(*lod_args, **lod_opts)
+    torch.cuda.synchronize()
+    ref = blend_forward_plain(*lod_args, **lod_opts)
+    max_err = max(max_err, compare("tau-0 stream frame", got, ref,
+                                   FRAME_ATOL, FRAME_NC_SHARE))
+    del got, ref
+    lod_wrap_ms = cuda_time_ms(lambda: kernel(*lod_args, **lod_opts), 20,
+                               warmup=3)
+    lod_launch_ms = bare_launch_ms(lod_args, lod_opts)
+    lod_plain_ms = cuda_time_ms(lambda: blend_forward_plain(
+        *lod_args, **lod_opts), 2)
+    feats_l, _, starts_l, counts_l = lod_args
+    l_eval, l_applied, l_cand = work_of_frame(
+        *lod_args, width, height, 32, 32, lod_opts["t_eps"],
+        lod_opts["alpha_min"], use_lod=True)
+    l_entries = int(counts_l.sum())
+    l_bytes = (feats_l.shape[0] * 12 * 4 + l_entries * 4
+               + 2 * starts_l.numel() * 4 + width * height * (4 * 4 + 4 + 4))
+    l_ops = OPS_EVAL * l_eval + OPS_APPLY * l_applied + OPS_LOD * l_cand
+    l_t_bytes = l_bytes / PEAK_BYTES_S * 1e3
+    l_t_ops = l_ops / PEAK_F32_S * 1e3
+    lod_bound_ms = max(l_t_bytes, l_t_ops)
+    lod_bound_by = "bytes" if l_t_bytes >= l_t_ops else "operations"
+    log(f"  {feats_l.shape[0]} rows, {l_entries} entries, {l_eval} evaluated, "
+        f"{l_cand} candidate and {l_applied} applied (entry, pixel) pairs; "
+        f"ops {OPS_EVAL}/eval + {OPS_APPLY}/applied + {OPS_LOD}/candidate "
+        f"(LOD) = {l_ops:.4e} f32 ops, {l_bytes} bytes")
+    log(f"  blend_forward LOD: launch {lod_launch_ms:.4f} ms, wrapper "
+        f"{lod_wrap_ms:.4f} ms, plain version {lod_plain_ms:.2f} ms, bound "
+        f"{lod_bound_ms:.4f} ms ({lod_bound_by}; bytes {l_t_bytes:.4f} ms, "
+        f"ops {l_t_ops:.4f} ms) [{smi}]")
+    return dict(
+        max_err=max_err,
+        b1={"lod_stream": stream_launches, "lod_auto": auto_launches,
+            "eval": eval_launches, "maintenance": maint_launches},
+        b2={"lod_stream": stream_b2, "lod_auto": auto_b2, "eval": eval_b2,
+            "maintenance": maint_b2},
+        tau0={"ms": lod_launch_ms, "wrapper_ms": lod_wrap_ms,
+              "plain_ms": lod_plain_ms, "bound_ms": lod_bound_ms,
+              "bound_by": lod_bound_by})
+
+
 def main():
     import torch
 
@@ -581,8 +1101,8 @@ def main():
                              warmup=3)
     plain_ms = cuda_time_ms(lambda: blend_forward_plain(*frame_args,
                                                         **frame_opts), 3)
-    evaluated, applied = work_of_frame(feats0, bins0, width, height, 32, 32,
-                                       cfg.t_eps, cfg.alpha_min)
+    evaluated, applied, _ = work_of_frame(*frame_args, width, height, 32, 32,
+                                          cfg.t_eps, cfg.alpha_min)
     num_dup = int(bins0.num_dup)
     n_tiles = bins0.tile_starts.numel()
     bytes_moved = (n_g * 12 * 4 + num_dup * 4 + 2 * n_tiles * 4
@@ -782,31 +1302,39 @@ def main():
         f"{tr['bwd_ms']:.3f} ms (B2 kernel {b2_ms:.3f} ms), Adam "
         f"{tr['adam_ms']:.3f} ms [{smi}]")
 
-    # ---- 6. kernel table -------------------------------------------------
-    log(f"[6] done in {time.perf_counter() - t_start:.1f} s")
+    del ts, tr, pert
+    torch.cuda.empty_cache()
+
+    lodr = full_lod_phases(dev, width, height, bg, smi)
+    max_err = max(max_err, lodr["max_err"])
+
+    # ---- 12. kernel table -------------------------------------------------
+    log(f"[12] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_forward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
-        "launches": flat_launches + lod_launches + train_launches,
-        "launches_by_path": {"flat": flat_launches, "lod": lod_launches,
-                             "train": train_launches},
+        "launches": (flat_launches + lod_launches + train_launches
+                     + sum(lodr["b1"].values())),
+        "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
+                                  "train": train_launches}, **lodr["b1"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "lod_stream_tau0": lodr["tau0"],
     }, {
         "name": "blend_backward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_backward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
-        "launches": flat_b2 + lod_b2 + train_b2,
-        "launches_by_path": {"flat": flat_b2, "lod": lod_b2,
-                             "train": train_b2},
+        "launches": flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values()),
+        "launches_by_path": dict({"flat": flat_b2, "lod": lod_b2,
+                                  "train": train_b2}, **lodr["b2"]),
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,

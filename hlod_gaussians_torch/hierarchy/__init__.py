@@ -1,0 +1,15 @@
+from hlod_gaussians_torch.hierarchy.build import (  # noqa: F401
+    PaddedHierarchy,
+    build_hierarchy_padded,
+    compact_hierarchy,
+    build_hierarchy,
+)
+from hlod_gaussians_torch.hierarchy.cut import (  # noqa: F401
+    CutResult,
+    expand_to_size_dynamic,
+    expand_to_size_box,
+    expand_to_target,
+    is_hierarchy_cut,
+    sanity_check_hierarchy,
+    interpolate_with_parents,
+)

@@ -2,16 +2,21 @@
 """Device-time profile of the PyTorch port's serving frames and training
 step on one GPU.
 
-    python3 scripts/torch_frame_profile.py [--frames 8]
+    python3 scripts/torch_frame_profile.py [--frames 8] [--path lod_stream]
 
-Serves the flat 1080p bench request (render_arrays, 100k Gaussians, SH 3,
-32x32 tiles, tight binning) and the tau-3 LOD request of chip_smoke.py,
-and takes the flat training step of chip_smoke.py (train.flat.train_step
-on the perturbed bench scene at 1080p), under torch.profiler and prints,
-per path: the CUDA-event time per frame (or step), the host wall time, the
-device busy time (union of CUDA kernel intervals), the busy share of the
-CUDA-event window, kernel launches per frame, and the kernels with the most
-device time. Needs a CUDA device.
+By default serves the flat 1080p bench request (render_arrays, 100k
+Gaussians, SH 3, 32x32 tiles, tight binning) and the tau-3 LOD request of
+chip_smoke.py, and takes the flat training step of chip_smoke.py
+(train.flat.train_step on the perturbed bench scene at 1080p). With
+``--path lod_stream`` it builds chip_smoke.py's full-size LOD bench tree
+(1,048,575 nodes, SH 3) and profiles render_lod_stream at tau 0 and tau 15
+over the 26 bench cameras, after 6 warm-up frames, and times the stages of
+one frame of each (cut, interpolation, projection + SH, binning, blend).
+Each path runs under torch.profiler and prints: the CUDA-event time per
+frame (or step), the host wall time, the device busy time (union of CUDA
+kernel intervals), the busy share of the CUDA-event window, kernel
+launches per frame, and the kernels with the most device time. Needs a
+CUDA device.
 """
 
 import dataclasses
@@ -78,9 +83,125 @@ def profile(name, serve, frames):
         print(f"    {ms / frames:8.4f} ms/frame  {k[:110]}")
 
 
+def lod_stream_profiles(dev, frames):
+    """render_lod_stream on the full-size bench tree at tau 0 and 15, and
+    the stage split of one frame of each."""
+    import torch
+    from chip_smoke import (cuda_time_ms, lod_bench_camera, lod_bench_tree,
+                            lod_target)
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.hierarchy import cut as cut_mod
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
+    from hlod_gaussians_torch.ops.binning import bin_gaussians
+    from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
+
+    width, height = 1920, 1080
+    state, _, build_s, _ = lod_bench_tree(dev)
+    act = gm.activate(state)
+    max_scale = torch.max(act.scales, dim=1).values
+    pcache = cut_mod.build_parent_cache(state.nodes, act.means3d, max_scale)
+    params = dict(means3d=act.means3d, scales=act.scales, quats=act.quats,
+                  opacities=act.opacities, shs=act.shs)
+    itab = cut_mod.build_interp_table(params, state.nodes)
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=1 << 20, tight_binning=True)
+    cams = [lod_bench_camera(i, width, height, dev) for i in range(26)]
+    bg = torch.zeros(3, device=dev)
+    print(f"lod_stream: {state.nodes.shape[0]} nodes, built in {build_s:.2f} "
+          "s", flush=True)
+    for tau in (0.0, 15.0):
+        st, count = {}, [0]
+        target = lod_target(tau, cams[0], width)
+
+        def serve():
+            cam = cams[count[0] % len(cams)]
+            count[0] += 1
+            with torch.no_grad():
+                return render.render_lod_stream(
+                    act.means3d, act.scales, act.quats, act.opacities,
+                    act.shs, state.nodes, state.alive, cam.world_view,
+                    cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy,
+                    bg, target, st, pcache=pcache, interp_table=itab,
+                    sh_degree=3, width=width, height=height, cfg=cfg,
+                    k_max=512, use_frustum=False)
+
+        for _ in range(3):               # with profile()'s 3: 6 warm-up
+            serve()
+        profile(f"lod_stream tau {tau:g}", serve, frames)
+        path = st["pending"][1]
+        masked = path == "MASKED"
+        md = min(st["md"].get(path, cfg.max_dup), cfg.max_dup)
+        print(f"lod_stream tau {tau:g}: path "
+              f"{'masked' if masked else 'budgeted'}, budget {st['budget']}, "
+              f"md {md}, n_truncated_frames "
+              f"{st.get('n_truncated_frames', 0)}")
+
+        # the stages of one frame on the path the stream took (camera 0)
+        cam = cams[0]
+        stages = {}
+        cut = cut_mod.expand_to_size_dynamic(
+            state.nodes, act.means3d, max_scale, state.alive, cam.campos,
+            cam.world_view[:3, 2], target, pcache, use_frustum=False)
+        stages["cut"] = cuda_time_ms(lambda: cut_mod.expand_to_size_dynamic(
+            state.nodes, act.means3d, max_scale, state.alive, cam.campos,
+            cam.world_view[:3, 2], target, pcache, use_frustum=False), 10)
+        mask = cut.render_mask
+        # (interpolated rows, valid, ts, kids) as render_lod_masked and
+        # render_lod hand them to render_arrays
+        if masked:
+            def interp():
+                return (cut_mod.interpolate_all_masked(itab, cut.ts, mask),
+                        mask, torch.where(mask, cut.ts,
+                                          torch.ones_like(cut.ts)),
+                        torch.clamp_min(cut.kids, 1))
+        else:
+            def interp():
+                idx, valid = render.compact_cut(mask, cut.size, st["budget"])
+                return (cut_mod.interpolate_from_table(itab, idx,
+                                                       cut.ts[idx]),
+                        valid, cut.ts[idx], cut.kids[idx])
+        stages["compaction + interpolation"] = cuda_time_ms(interp, 10)
+        g, valid, ts, kids = interp()
+        quats = g["quats"] / torch.linalg.norm(
+            g["quats"], dim=-1, keepdim=True).clamp_min(1e-12)
+
+        def project():
+            p = gaussian_math.project_gaussians(
+                g["means3d"], gaussian_math.compute_cov3d(g["scales"],
+                                                          quats),
+                g["opacities"], cam.world_view, cam.full_proj, width,
+                height, cam.focal_x, cam.focal_y, cam.tan_fovx,
+                cam.tan_fovy, dilation=cfg.dilation, near=cfg.near,
+                valid_in=valid, big_limit=cfg.big_limit,
+                max_scale=torch.max(g["scales"], dim=-1).values)
+            return p, sh_ops.sh_color(3, g["shs"], g["means3d"], cam.campos)
+        stages["projection + SH"] = cuda_time_ms(project, 10)
+        p, color = project()
+
+        def binning():
+            return bin_gaussians(p.xy, p.depth, p.radius, p.valid, width,
+                                 height, 32, 32, md, ext=p.ext,
+                                 reff2=p.reff2)
+        stages["binning"] = cuda_time_ms(binning, 10)
+        bins = binning()
+        stages["blend (B1 + features)"] = cuda_time_ms(lambda: rasterize_tiles(
+            bins, p.xy, p.conic, p.opacity, color,
+            1.0 / torch.clamp_min(p.depth, 1e-6), bg, ts, kids, width=width,
+            height=height, tile_w=32, tile_h=32, inference=True), 10)
+        print(f"lod_stream tau {tau:g} stages (CUDA events, median of 10): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()),
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--path", choices=("serve_train", "lod_stream"),
+                    default="serve_train",
+                    help="the flat and LOD requests and the train step, or "
+                    "the full-size LOD stream")
     args = ap.parse_args()
 
     import torch
@@ -102,6 +223,9 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi, f"torch {torch.__version__}", flush=True)
     dev = torch.device("cuda")
+    if args.path == "lod_stream":
+        lod_stream_profiles(dev, args.frames)
+        return 0
     width, height = 1920, 1080
     cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
                            max_dup=352 * 1024, tight_binning=True)

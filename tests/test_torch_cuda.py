@@ -216,3 +216,85 @@ def test_cuda_render_grads_match_cpu(lod, cuda_device):
         scale = float(ref.abs().max())
         assert scale > 0 and float((got - ref).abs().max()) <= \
             GRAD_ATOL * scale, k
+
+
+def _leaves(n, seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return (pts, np.exp(rng.normal(size=(n, 3)) * 0.3 - 2.5).astype(
+        np.float32), q, rng.uniform(0.3, 0.9, n).astype(np.float32),
+        (rng.normal(size=(n, 16, 3)) * 0.2).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_hierarchy_build_matches_cpu(cuda_device):
+    """The build on the card gives the CPU build's tree node for node, and
+    its moments to the oracle suite's tolerances (covariances compared as
+    matrices: a near tie in the rotation alignment may pick another of the
+    equivalent axis permutations)."""
+    from hlod_gaussians_torch.hierarchy import build
+    from hlod_gaussians_torch.ops.gaussian_math import compute_cov3d
+    leaves = _leaves(1000, 3)               # not a power of two
+    cpu = build.build_hierarchy(*leaves, device=torch.device("cpu"))
+    gpu = build.build_hierarchy(*leaves, device=cuda_device)
+    for k in ("nodes", "leaf_point"):
+        np.testing.assert_array_equal(getattr(gpu, k), getattr(cpu, k))
+    np.testing.assert_allclose(gpu.pos, cpu.pos, rtol=0, atol=2e-5)
+    cov = [compute_cov3d(torch.as_tensor(h.scale), torch.as_tensor(h.quat))
+           for h in (gpu, cpu)]
+    ref = cov[1].abs().max(dim=1).values.clamp_min(1e-8)
+    assert float(((cov[0] - cov[1]).abs().max(dim=1).values / ref).max()) \
+        < 5e-3
+    np.testing.assert_allclose(gpu.opacity, cpu.opacity, rtol=5e-3,
+                               atol=1e-5)
+    np.testing.assert_allclose(gpu.sh, cpu.sh, rtol=0, atol=1e-4)
+    for k in ("box_lo", "box_hi", "max_side"):
+        np.testing.assert_array_equal(getattr(gpu, k), getattr(cpu, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crossover", [1e9, 0.0], ids=["masked", "budget"])
+def test_cuda_stream_frames_match_cpu(crossover, cuda_device):
+    """Three render_lod_stream frames on the card (kernel B1, feedback by a
+    pinned copy and an event) against the CPU path: images to 1e-4 (the
+    card's projection may round the last bit otherwise), the same cut sizes
+    and regulation state after every frame."""
+    from hlod_gaussians_torch.hierarchy import build, cut
+    h = build.build_hierarchy(*_leaves(300, 5), device=torch.device("cpu"))
+    keys = ("pos", "scale", "quat", "opacity", "sh")
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=1 << 14)
+    states, outs = {}, {}
+    for dev in (torch.device("cpu"), cuda_device):
+        t = {k: torch.as_tensor(getattr(h, k), device=dev) for k in keys}
+        nodes = torch.as_tensor(h.nodes, device=dev)
+        alive = torch.ones(h.nodes.shape[0], dtype=torch.bool, device=dev)
+        itab = cut.build_interp_table(
+            dict(means3d=t["pos"], scales=t["scale"], quats=t["quat"],
+                 opacities=t["opacity"].clamp(0, 1), shs=t["sh"]), nodes)
+        st, seq = {}, []
+        for i, target in enumerate((1e-9, 3e-3, 3e-3)):
+            cam = make_camera(np.eye(3), np.array([0.05 * i, 0.0, 0.0]),
+                              0.9, 0.7, W, H, device=dev)
+            launches = rasterize_cuda.blend_forward.launches
+            with torch.no_grad():
+                out, n_sel = render.render_lod_stream(
+                    t["pos"], t["scale"], t["quat"], t["opacity"].clamp(0, 1),
+                    t["sh"], nodes, alive, cam.world_view, cam.full_proj,
+                    cam.campos, cam.tan_fovx, cam.tan_fovy,
+                    torch.zeros(3, device=dev), target, st,
+                    interp_table=itab, sh_degree=3, width=W, height=H,
+                    cfg=cfg, use_frustum=False, min_budget=16, md_floor=256,
+                    masked_crossover=crossover)
+            assert rasterize_cuda.blend_forward.launches == launches + (
+                dev.type == "cuda")
+            state = {k: v for k, v in st.items() if k != "pending"}
+            seq.append((out.image.cpu(), int(n_sel), bool(out.truncated),
+                        dict(state, path=st["pending"][1:])))
+        outs[dev.type] = seq
+    for (gi, gn, gt, gs), (ci, cn, ct, cs) in zip(outs["cuda"], outs["cpu"]):
+        assert (gn, gt, gs) == (cn, ct, cs)
+        torch.testing.assert_close(gi, ci, atol=1e-4, rtol=0)
