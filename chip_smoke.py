@@ -66,7 +66,21 @@ Phases (any failure raises and exits non-zero):
   11. kernel B1 at the tau-0 stream frame: against its plain version, the
      bare launch and the wrapper timed, the bound from the frame's
      evaluated, candidate and applied pairs with the LOD alpha's operations.
-  12. the {"kernels": [...]} line, then the device line.
+  12. hierarchy post-optimization at the JAX package's post bench point
+     (scripts/offload_bench3.py): build_hierarchy on the card over 2^21
+     leaves (4,194,303 nodes, SH 1), the SPT forest, a 40-view 1080p orbit
+     whose targets are the unperturbed tree rendered at each view's SPT
+     cut; the tree perturbed (f_dc + 0.3, 3 x 4,096 leaves dead);
+     pipeline.full_train.post_optimize for 40 steps with an MCMC round
+     every 10 (three rounds, each relocating rows, the tree proper after
+     each): every step untruncated and finite with one B1 and one B2
+     launch, camera 0's L1 falling; step median (CUDA events), host wall,
+     the cut / render + loss / backward / Adam split, densify_round and
+     rebuild_spt seconds; B1 (1e-4, n_contrib exact) and B2 (3e-4 scaled)
+     against their plain versions at a post frame, bare launch, wrapper and
+     bound; then 4 steps with the occlusion cull (two B1 launches a step)
+     on the state exported to a .dhier and resumed.
+  13. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -119,6 +133,15 @@ STREAM_TAUS = (0.0, 15.0)
 STREAM_WARM, STREAM_TIMED = 6, 20
 EVAL_TAUS = (0.0, 3.0, 6.0, 15.0)
 MAINT_FRAMES, MAINT_MOVING = 30, 10
+# the JAX package's post-optimization operating point
+# (scripts/offload_bench3.py:47-119): 2^21 leaves, a 4,194,303-node tree, a
+# 40-view 1080p orbit; 40 post steps with an MCMC round every 10, then 4
+# with the occlusion cull; 3 x 4,096 leaves start dead, a full relocation
+# budget a round
+POST_LEAVES = 1 << 21
+POST_VIEWS, POST_ITERS, POST_DENSIFY, POST_OCC_ITERS = 40, 40, 10, 4
+POST_DEAD = 3 * 4096
+POST_FREE_ROWS = 1 << 16       # densify_round adds <= 2 x 4,096 rows a round
 
 
 def log(*a):
@@ -248,10 +271,11 @@ def compare(name, got, ref, atol, nc_share=0.0):
 def work_of_frame(feats, sorted_gid, tile_starts, tile_counts, width,
                   height, tile_w, tile_h, t_eps, alpha_min, use_lod=False):
     """(evaluated, applied, candidate) (entry, pixel) pairs of the serial
-    loop on these inputs: a replay of the plain version's control flow that
-    counts, per pixel, the entries it evaluates up to its stop; candidates
-    are the evaluated pairs with power <= 0 above the kernel's exp-free
-    reject, which alone take the (LOD) alpha."""
+    loop on these inputs, and the entries each tile reads: a replay of the
+    plain version's control flow that counts, per pixel, the entries it
+    evaluates up to its stop (a tile reads an entry while one of its pixels
+    is live); candidates are the evaluated pairs with power <= 0 above the
+    kernel's exp-free reject, which alone take the (LOD) alpha."""
     import math
 
     import torch
@@ -265,10 +289,12 @@ def work_of_frame(feats, sorted_gid, tile_starts, tile_counts, width,
     evaluated = torch.zeros((), dtype=torch.int64, device=feats.device)
     applied = torch.zeros_like(evaluated)
     candidates = torch.zeros_like(evaluated)
+    read = torch.zeros_like(tile_counts)
     log_amin = math.log(alpha_min) - 0.05
     for k in range(int(tile_counts.max())):
         live = (k < tile_counts)[:, None] & ~done
         evaluated += live.sum()
+        read += live.any(1)
         f = feats[sorted_gid[torch.clamp(tile_starts + k, 0,
                                          sorted_gid.shape[0] - 1)].long()]
         alpha, power = entry_alpha(f, pxf, pyf, use_lod=use_lod)
@@ -281,7 +307,28 @@ def work_of_frame(feats, sorted_gid, tile_starts, tile_counts, width,
         applied += apply.sum()
         t_run = torch.where(apply, test_t, t_run)
         done = done | trigger
-    return int(evaluated), int(applied), int(candidates)
+    return int(evaluated), int(applied), int(candidates), read
+
+
+def frame_bytes(fargs, per_tile, width, height, pixel_bytes, entry_bytes=0):
+    """(bytes, entries, feature rows) a blend kernel must move on a frame:
+    the first per_tile[t] entries of each tile (a 4-byte id each, plus
+    `entry_bytes` written), the distinct feature rows those entries point at
+    (48 bytes each: a row that no such entry names is never fetched), the
+    tile ranges, and `pixel_bytes` a pixel."""
+    import torch
+    _, sorted_gid, tile_starts, _ = fargs
+    per_tile = per_tile.long()
+    n = int(per_tile.sum())
+    tile = torch.repeat_interleave(
+        torch.arange(per_tile.numel(), device=per_tile.device), per_tile)
+    first = torch.cumsum(per_tile, 0) - per_tile
+    pos = (tile_starts.long()[tile] - first[tile]
+           + torch.arange(n, device=per_tile.device))
+    rows = int(torch.unique(sorted_gid[pos]).numel())
+    n_bytes = (rows * 12 * 4 + n * (4 + entry_bytes)
+               + 2 * tile_starts.numel() * 4 + width * height * pixel_bytes)
+    return n_bytes, n, rows
 
 
 def check_backward(name, args, opts, fwd, gen):
@@ -638,27 +685,472 @@ def bare_launch_ms(fargs, opts, reps=20):
     median of `reps` CUDA-event timings."""
     import torch
     from hlod_gaussians_torch.ops import rasterize_cuda
-    from hlod_gaussians_torch.ops.binning import tile_grid
-    feats, sorted_gid, tile_starts, tile_counts = fargs
-    w, h, tw, th = (opts[k] for k in ("width", "height", "tile_w",
-                                      "tile_h"))
-    gw, gh = tile_grid(w, h, tw, th)
+    feats = fargs[0]
+    h, w = opts["height"], opts["width"]
     img4 = torch.empty((4, h, w), device=feats.device)
     final_t = torch.empty((h, w), device=feats.device)
     n_contrib = torch.empty((h, w), dtype=torch.int32, device=feats.device)
-    lib = rasterize_cuda._library("blend_forward")
-    stream = torch.cuda.current_stream().cuda_stream
+    return cuda_time_ms(lambda: rasterize_cuda.launch_blend_forward(
+        *fargs, img4, final_t, n_contrib, None, **opts), reps, warmup=3)
 
-    def launch():
-        err = lib.blend_forward_launch(
-            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
-            tile_counts.data_ptr(), gw * gh, gw, tw, th, w, h,
-            float(opts["t_eps"]), float(opts["alpha_min"]),
-            int(opts["use_lod"]), img4.data_ptr(), final_t.data_ptr(),
-            n_contrib.data_ptr(), None, stream)
-        if err:
-            raise RuntimeError(f"blend_forward launch failed ({err})")
-    return cuda_time_ms(launch, reps, warmup=3)
+
+def bare_b2_launch_ms(bargs, bopts, reps=20):
+    """B2's bare launch (the C entry point into a preallocated gradient
+    buffer), the median of `reps` CUDA-event timings."""
+    import torch
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import N_FEATS
+    feats, sorted_gid = bargs[:2]
+    egrads = torch.zeros((sorted_gid.shape[0], N_FEATS), device=feats.device)
+    return cuda_time_ms(lambda: rasterize_cuda.launch_blend_backward(
+        *bargs, egrads, alpha_min=1.0 / 255.0, **bopts), reps, warmup=3)
+
+
+def b2_work(fargs, fwd, applied, width, height):
+    """(needed pairs, bytes, f32 ops, entries walked, feature rows) of B2 on
+    a frame of 32x32 tiles: every entry before a pixel's n_contrib decides
+    whether it was applied, and the applied pairs carry the gradient (phase
+    [2b]'s count); a tile walks its entries up to its largest n_contrib,
+    reads each one's feature row and writes its 48-byte gradient row."""
+    from hlod_gaussians_torch.ops.rasterize_xla import tile_image
+    needed = int(fwd[2].sum())
+    walk = tile_image(fwd[2], width, height, 32, 32).amax(1)
+    n_bytes, n, rows = frame_bytes(fargs, walk, width, height,
+                                   4 + 4 + 4 * 4 + 4, entry_bytes=12 * 4)
+    return (needed, n_bytes, B2_OPS_NEED * needed + B2_OPS_APPLY * applied,
+            n, rows)
+
+
+def bound(n_bytes, ops):
+    """The least time the card could take for this work: (ms, what bounds
+    it, "bytes x ms, ops y ms")."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", f"bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms")
+
+
+def post_bench_leaves(n=POST_LEAVES):
+    """The leaves of the JAX package's post-optimization bench tree
+    (scripts/offload_bench3.py:47-66): half on a shell of radius ~20, half
+    in an N(0, 12) volume, scales exp(N(0, 0.3) - 3.4), unit quaternions,
+    opacity U(0.2, 0.9), SH degree 1 (DC N(0, 0.4), rest N(0, 0.05)), from
+    default_rng(11)."""
+    rng = np.random.default_rng(11)
+    n_shell = n // 2
+    sph = rng.normal(size=(n_shell, 3)).astype(np.float32)
+    sph /= np.linalg.norm(sph, axis=-1, keepdims=True)
+    shell = sph * (20.0 + rng.normal(size=(n_shell, 1)).astype(np.float32))
+    vol = rng.normal(size=(n - n_shell, 3)).astype(np.float32) * 12.0
+    pts = np.concatenate([shell, vol]).astype(np.float32)
+    scales = np.exp(rng.normal(size=(n, 3)) * 0.3 - 3.4).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    ops = rng.uniform(0.2, 0.9, n).astype(np.float32)
+    shs = np.concatenate([
+        rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.4,
+        rng.normal(size=(n, 3, 3)).astype(np.float32) * 0.05], axis=1)
+    return pts, scales, quats, ops, shs
+
+
+def post_bench_cameras(width, height, dev, n=POST_VIEWS):
+    """The 40-view orbit (offload_bench3.py:107-119): yaw 2 pi i / 40, the
+    ring point of radius 8 passed as make_camera's translation, as there."""
+    from hlod_gaussians_torch.utils.camera import make_camera
+    cams = []
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]], np.float32)
+        campos = np.array([8.0 * np.sin(a), 0.0, -8.0 * np.cos(a)],
+                          np.float32)
+        cams.append(make_camera(R, campos, 1.2, 0.8, width, height,
+                                device=dev))
+    return cams
+
+
+def post_bench_dhier(dev, n=POST_LEAVES):
+    """The post bench tree built on `dev` as a .dhier (offload_bench3.py
+    :75-79); returns (DHier, build seconds)."""
+    import torch
+    from hlod_gaussians_torch.data.dhier import DHier
+    from hlod_gaussians_torch.hierarchy import build as hb
+    leaves = post_bench_leaves(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = hb.build_hierarchy(*leaves, device=dev)
+    build_s = time.perf_counter() - t0
+    return DHier(
+        sh_degree=1, pos=h.pos, quat=h.quat,
+        log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
+        opacity=np.clip(h.opacity, 1e-4, 1 - 1e-6).astype(np.float32),
+        shs=h.sh.astype(np.float32), nodes=h.nodes), build_s
+
+
+def perturb_post_dhier(d, n_dead=POST_DEAD, seed=12):
+    """f_dc + 0.3, and `n_dead` seeded random leaves at opacity 0.001 (below
+    relocate_gs's 0.005)."""
+    shs = d.shs.copy()
+    shs[:, 0] += np.float32(0.3)
+    opacity = d.opacity.copy()
+    leaves = np.where(d.nodes[:, 2] == 0)[0]
+    dead = np.random.default_rng(seed).choice(leaves, n_dead, replace=False)
+    opacity[dead] = np.float32(0.001)
+    return d._replace(shs=shs, opacity=opacity)
+
+
+def tree_invariants(g):
+    """The node table of the alive rows is a proper tree (test_mcmc.py
+    :71-85 on the card, plus depths): an interior node's two children are
+    alive and point back at it, a child's parent is an alive interior node
+    one level up, and there is one root."""
+    import torch
+    from hlod_gaussians_torch.models.gaussians import (NODE_CHILD_COUNT,
+                                                       NODE_DEPTH,
+                                                       NODE_FIRST_CHILD,
+                                                       NODE_NEXT_SIBLING,
+                                                       NODE_PARENT)
+    nodes, alive = g.nodes, g.alive
+    c = nodes.shape[0]
+    idx = torch.arange(c, device=nodes.device)
+    clip = lambda v: v.long().clamp(0, c - 1)
+    c0 = clip(nodes[:, NODE_FIRST_CHILD])
+    c1 = clip(nodes[c0, NODE_NEXT_SIBLING])
+    interior = alive & (nodes[:, NODE_CHILD_COUNT] == 2)
+    ok = ~interior | (alive[c0] & alive[c1] & (nodes[c0, NODE_PARENT] == idx)
+                      & (nodes[c1, NODE_PARENT] == idx))
+    p = clip(nodes[:, NODE_PARENT])
+    child = alive & (nodes[:, NODE_PARENT] >= 0)
+    ok &= ~child | (alive[p] & (nodes[p, NODE_CHILD_COUNT] == 2)
+                    & (nodes[:, NODE_DEPTH] == nodes[p, NODE_DEPTH] + 1))
+    roots = alive & (nodes[:, NODE_PARENT] < 0) & (nodes[:, NODE_DEPTH] >= 0)
+    return bool(ok.all()) and int(roots.sum()) == 1
+
+
+def post_targets(d, cap, cams, dev, width, height, n_leaves=POST_LEAVES):
+    """The post phase's targets: the unperturbed tree at each view's SPT
+    cut, rendered as a post step renders (antialiasing on) with a generous
+    capacity (16 entries a leaf). Returns the views with their images, the
+    forest and its rebuild seconds, camera 0's working set, the rows and
+    entries of each view, and the training's max_dup: 1.25 times the most
+    entries a view needs, in MiB-entry steps."""
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import PostConfig, RasterizerConfig
+    from hlod_gaussians_torch.hierarchy import spt as spt_mod
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train import post
+    pcfg = PostConfig()
+    bg = torch.zeros(3, device=dev)
+    clean = post.create_from_dhier(d, cap, scene_radius=25.0, device=dev)
+    t0 = time.perf_counter()
+    forest = post.rebuild_spt(clean, post=pcfg)
+    torch.cuda.synchronize()
+    out = dict(forest=forest, rebuild_s=time.perf_counter() - t0, views=[],
+               ws_rows=[], entries=[])
+    act = gm.activate(clean)
+    probe = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                             max_dup=16 * n_leaves, tight_binning=True)
+    for i, cam in enumerate(cams):
+        cut = spt_mod.spt_cut_budgeted(
+            forest, cap, cam.campos, cam.full_proj, pcfg.max_gaussian_budget,
+            grow=pcfg.distance_multiplier_until_budget,
+            use_frustum=pcfg.use_frustum_culling)
+        with torch.no_grad():
+            r = render.render_arrays(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                act.valid & cut.gaussian_mask, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, bg, sh_degree=1,
+                width=width, height=height, cfg=probe, antialiasing=True)
+        if bool(r.truncated):
+            raise AssertionError(f"target {i} truncated at {probe.max_dup} "
+                                 "entries")
+        out["views"].append(dataclasses.replace(cam, image=r.image))
+        out["ws_rows"].append(int(cut.n_selected))
+        out["entries"].append(int(r.n_dup))
+        if i == 0:
+            out["mask0"] = cut.gaussian_mask
+    out["max_dup"] = -(-int(1.25 * max(out["entries"])) // (1 << 20)) \
+        * (1 << 20)
+    return out
+
+
+def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
+    """Phase 12: hierarchy post-optimization on the post bench tree; returns
+    the B1 and B2 launches of the post path, both kernels' numbers at one
+    post frame and the largest kernel-vs-plain errors."""
+    import torch
+    from hlod_gaussians_torch import optim, render
+    from hlod_gaussians_torch.config import (OptimizationConfig, PostConfig,
+                                             RasterizerConfig)
+    from hlod_gaussians_torch.hierarchy import spt as spt_mod
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.models import reorder
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
+                                                        blend_forward_plain)
+    from hlod_gaussians_torch.pipeline import full_train
+    from hlod_gaussians_torch.train import post
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    pcfg = PostConfig()
+    extent = 25.0
+    bg = torch.zeros(3, device=dev)
+
+    log(f"[12] post-optimization: {n_leaves} leaves (the JAX package's "
+        f"post bench tree, SH 1), {POST_VIEWS}-view {width}x{height} orbit, "
+        f"post_optimize {POST_ITERS} steps with an MCMC round every "
+        f"{POST_DENSIFY}, then {POST_OCC_ITERS} with the occlusion cull")
+    d, build_s = post_bench_dhier(dev, n_leaves)
+    m = d.nodes.shape[0]
+    cap = m + POST_FREE_ROWS
+    cams = post_bench_cameras(width, height, dev)
+
+    t = post_targets(d, cap, cams, dev, width, height, n_leaves)
+    views, forest, max_dup = t["views"], t["forest"], t["max_dup"]
+    ws_rows, entries, mask0 = t["ws_rows"], t["entries"], t["mask0"]
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=max_dup, tight_binning=True)
+    log(f"  {m} nodes, built on the card in {build_s:.2f} s; capacity {cap}; "
+        f"forest {forest.n_spts} SPTs, {forest.entry_gid.shape[0]} entries, "
+        f"{forest.ut_nodes.shape[0]} upper-tree nodes, rebuild_spt "
+        f"{t['rebuild_s']:.2f} s (host sweep)")
+    log(f"  working-set rows per view: min {min(ws_rows)}, max "
+        f"{max(ws_rows)}, mean {np.mean(ws_rows):.0f}; target entries min "
+        f"{min(entries)}, max {max(entries)} -> max_dup {max_dup}")
+
+    # camera 0's L1 before: the perturbed state at its cut
+    pert_d = perturb_post_dhier(d, min(POST_DEAD, n_leaves // 16))
+    del forest, d, t
+
+    def l1_at_cam0(g, mask):
+        a = gm.activate(g, mask)
+        with torch.no_grad():
+            out = render.render_arrays(
+                a.means3d, a.scales, a.quats, a.opacities, a.shs, a.valid,
+                cams[0].world_view, cams[0].full_proj, cams[0].campos,
+                cams[0].tan_fovx, cams[0].tan_fovy, bg, sh_degree=1,
+                width=width, height=height, cfg=cfg, antialiasing=True)
+        return float((out.image - views[0].image).abs().mean())
+
+    pert = post.create_from_dhier(pert_d, cap, scene_radius=extent,
+                                  device=dev)
+    l1_before = l1_at_cam0(pert, mask0)
+    del pert, mask0
+
+    # the loop: its logger records an event after every step (after the
+    # MCMC round and rebuild where one ran), and holds the tree that each
+    # round's surgery left to its invariants
+    rec, rounds, surgery = [], [], []
+
+    class Record:
+        def log(self, **kv):
+            if kv["stage"] == "post_densify":
+                if not tree_invariants(surgery.pop().gaussians):
+                    raise AssertionError(f"MCMC round at step {kv['it']} "
+                                         "broke the tree")
+                rounds.append(kv)
+                return
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec.append(dict(kv, ev=ev, host=time.perf_counter(),
+                            launches=(kernel.launches, kernel_b2.launches)))
+
+    densify_round = post.densify_round
+
+    def observed_round(*a, **kw):
+        out = densify_round(*a, **kw)
+        surgery.append(out[0])
+        return out
+
+    torch.cuda.synchronize()
+    kernel.launches = kernel_b2.launches = 0
+    post.densify_round = observed_round
+    t0 = time.perf_counter()
+    try:
+        ts = full_train.post_optimize(
+            pert_d, views, extent, POST_ITERS, cap, post=pcfg, cfg=cfg,
+            pcfg=full_train.PipelineConfig(
+                post_densify_interval=POST_DENSIFY),
+            logger=Record(), log_every=1, device=dev)
+    finally:
+        post.densify_round = densify_round
+    loop_s = time.perf_counter() - t0
+    post_launches = (kernel.launches, kernel_b2.launches)
+    prev = (0, 0)
+    step_ms, host_ms = [], []
+    for i, r in enumerate(rec):
+        delta = (r["launches"][0] - prev[0], r["launches"][1] - prev[1])
+        prev = r["launches"]
+        if r["truncated"] or not np.isfinite(r["loss"]) or delta != (1, 1):
+            raise AssertionError(f"post step {r['it']}: truncated "
+                                 f"{r['truncated']}, loss {r['loss']}, "
+                                 f"(B1, B2) launches {delta}")
+        if i > 0 and r["it"] % POST_DENSIFY:
+            step_ms.append(rec[i - 1]["ev"].elapsed_time(r["ev"]))
+            host_ms.append((r["host"] - rec[i - 1]["host"]) * 1e3)
+    losses = [r["loss"] for r in rec]
+    log(f"  {len(rec)} steps in {loop_s:.1f} s (setup, rounds and rebuilds "
+        f"included); working-set rows per step {[r['n_cut'] for r in rec]}"
+        f"; rendered (visible) rows median "
+        f"{statistics.median([r['n_rendered'] for r in rec])}")
+    log(f"  step median {statistics.median(step_ms):.3f} ms on the card (CUDA "
+        f"events, {len(step_ms)} steps without a round; min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f}), host wall median "
+        f"{statistics.median(host_ms):.3f} ms; one B1 and one B2 launch a "
+        f"step; losses {[round(x, 5) for x in losses[::8]]} [{smi}]")
+    for r in rounds:
+        log(f"  MCMC round at step {r['it']}: {r['n_added_pairs']} pairs "
+            f"added, {r['n_relocated']} rows relocated, size {r['size']}; "
+            f"densify_round {r['densify_s']:.3f} s, rebuild_spt "
+            f"{r['rebuild_s']:.2f} s")
+    if (len(rounds) != len(range(POST_DENSIFY, POST_ITERS, POST_DENSIFY))
+            or any(r["n_relocated"] <= 0 for r in rounds)):
+        raise AssertionError(f"MCMC rounds {rounds}")
+
+    # camera 0's L1 after, at the cut of the final tree
+    t0 = time.perf_counter()
+    forest = post.rebuild_spt(ts.gaussians, post=pcfg)
+    rebuild_end_s = time.perf_counter() - t0
+    cut0 = spt_mod.spt_cut_budgeted(
+        forest, cap, cams[0].campos, cams[0].full_proj,
+        pcfg.max_gaussian_budget, grow=pcfg.distance_multiplier_until_budget)
+    l1_after = l1_at_cam0(ts.gaussians, cut0.gaussian_mask)
+    log(f"  camera 0 L1 against its target: {l1_before:.6f} before, "
+        f"{l1_after:.6f} after; final tree {int(ts.gaussians.alive.sum())} "
+        f"rows, invariants hold {tree_invariants(ts.gaussians)}, "
+        f"rebuild_spt {rebuild_end_s:.2f} s")
+    if not (l1_after < l1_before and tree_invariants(ts.gaussians)):
+        raise AssertionError("post-optimization did not lower camera 0's L1")
+
+    # the split of one step on the final state (camera 0)
+    g = ts.gaussians
+    cam_args = (cams[0].world_view, cams[0].full_proj, cams[0].campos,
+                cams[0].tan_fovx, cams[0].tan_fovy)
+    split = dict(cut=cuda_time_ms(lambda: spt_mod.spt_cut_budgeted(
+        forest, cap, cams[0].campos, cams[0].full_proj,
+        pcfg.max_gaussian_budget), 5))
+    loss_kw = dict(opt=OptimizationConfig(), post=pcfg, cfg=cfg,
+                   width=width, height=height, k_max=1024, sh_degree=1,
+                   antialiasing=True)
+
+    def forward():
+        params = {k: p.detach().requires_grad_(True)
+                  for k, p in g.params().items()}
+        loss, (out, *_) = post.post_loss(
+            g, params, cut0.gaussian_mask, *cam_args, views[0].image, bg,
+            **loss_kw)
+        return loss, params, out
+
+    split["render + loss"] = cuda_time_ms(forward, 3)
+    bwd, adam = [], []
+    lrs = optim.param_lrs(OptimizationConfig(), ts.step, extent)
+    for _ in range(3):
+        loss, params, out = forward()
+        torch.cuda.synchronize()
+        grads = {}
+
+        def backward():
+            got = torch.autograd.grad(loss, list(params.values()),
+                                      allow_unused=True)
+            grads.update((k, torch.zeros_like(params[k]) if v is None else v)
+                         for k, v in zip(params, got))
+        bwd.append(cuda_time_ms(backward, 1, warmup=0))
+        detached = {k: p.detach() for k, p in params.items()}
+        adam.append(cuda_time_ms(lambda: optim.sparse_adam_update(
+            detached, grads, ts.adam, lrs, visible=out.visible), 1,
+            warmup=0))
+    split["backward"] = statistics.median(bwd)
+    split["Adam"] = statistics.median(adam)
+    del loss, params, out, grads, detached
+    log("  split of one step (camera 0, CUDA events): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{smi}]")
+
+    # B1 and B2 at this post frame
+    fargs, fopts = capture_b1_inputs(forward)
+    fargs = tuple(a.detach() for a in fargs)
+    got = kernel(*fargs, **fopts)
+    torch.cuda.synchronize()
+    ref = blend_forward_plain(*fargs, **fopts)
+    b1_err = compare("post frame", got, ref, FRAME_ATOL)
+    del ref
+    b1 = dict(ms=bare_launch_ms(fargs, fopts),
+              wrapper_ms=cuda_time_ms(lambda: kernel(*fargs, **fopts), 20,
+                                      warmup=3),
+              plain_ms=cuda_time_ms(lambda: blend_forward_plain(
+                  *fargs, **fopts), 2))
+    feats, _, _, counts = fargs
+    n_entries = int(counts.sum())
+    evaluated, applied, _, read = work_of_frame(
+        *fargs, width, height, 32, 32, fopts["t_eps"], fopts["alpha_min"])
+    b1_bytes, b1_read, b1_rows = frame_bytes(fargs, read, width, height,
+                                             4 * 4 + 4 + 4)
+    b1["bound_ms"], b1["bound_by"], b1_parts = bound(
+        b1_bytes, OPS_EVAL * evaluated + OPS_APPLY * applied)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b2_err, (bargs, bopts) = check_backward(
+        "post frame", fargs, dict(fopts, use_lod=False), got, gen)
+    needed, b2_bytes, b2_ops, b2_walk, b2_rows = b2_work(
+        fargs, got, applied, width, height)
+    b2 = dict(ms=bare_b2_launch_ms(bargs, bopts),
+              wrapper_ms=cuda_time_ms(lambda: kernel_b2(*bargs, **bopts), 20,
+                                      warmup=3),
+              plain_ms=cuda_time_ms(lambda: blend_backward_plain(
+                  *bargs, **bopts), 2))
+    b2["bound_ms"], b2["bound_by"], b2_parts = bound(b2_bytes, b2_ops)
+    log(f"  post frame: {feats.shape[0]} rows, {n_entries} entries of "
+        f"max_dup {max_dup}; B1 reads {b1_read} entries naming {b1_rows} "
+        f"rows ({b1_bytes} bytes), B2 walks {b2_walk} naming {b2_rows} "
+        f"({b2_bytes} bytes); {evaluated} evaluated, {applied} applied and "
+        f"{needed} B2-needed (entry, pixel) pairs")
+    for name, k, parts in (("blend_forward", b1, b1_parts),
+                            ("blend_backward", b2, b2_parts)):
+        log(f"  {name} at the post frame: launch {k['ms']:.4f} ms, wrapper "
+            f"{k['wrapper_ms']:.4f} ms, plain version {k['plain_ms']:.2f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}; {parts}) "
+            f"[{smi}]")
+    del got, bargs, fargs
+
+    # 4 more steps with the occlusion cull: the state exported to a .dhier
+    # and post-optimized again, as a resumed run would
+    occ = []
+
+    class OccRecord:
+        def log(self, **kv):
+            occ.append((kernel.launches, kernel_b2.launches, kv["loss"],
+                        kv["truncated"], kv["n_rendered"]))
+
+    resumed = post.state_to_dhier(ts.gaussians)
+    del ts, g
+    torch.cuda.empty_cache()
+    kernel.launches = kernel_b2.launches = 0
+    ts2 = full_train.post_optimize(
+        resumed, views, extent, POST_OCC_ITERS, cap,
+        post=dataclasses.replace(pcfg, use_occlusion_culling=True), cfg=cfg,
+        pcfg=full_train.PipelineConfig(post_densify_interval=POST_DENSIFY),
+        logger=OccRecord(), log_every=1, device=dev)
+    occ_launches = (kernel.launches, kernel_b2.launches)
+    prev = (0, 0)
+    for i, (l1_, l2_, loss, trunc, rendered) in enumerate(occ):
+        delta = (l1_ - prev[0], l2_ - prev[1])
+        prev = (l1_, l2_)
+        if trunc or not np.isfinite(loss) or delta != (2, 1):
+            raise AssertionError(f"occlusion step {i}: truncated {trunc}, "
+                                 f"loss {loss}, (B1, B2) launches {delta}")
+    forest = post.rebuild_spt(ts2.gaussians, post=pcfg)
+    cut0 = spt_mod.spt_cut(forest, cap, cams[0].campos, cams[0].full_proj)
+    occ_out = reorder.occlusion_render(ts2.gaussians, cut0.gaussian_mask,
+                                       *cam_args)
+    kept = int((occ_out.seen & cut0.gaussian_mask).sum())
+    log(f"  occlusion cull: {POST_OCC_ITERS} steps of two B1 and one B2 "
+        f"launch each, losses {[round(o[2], 5) for o in occ]}, rendered rows "
+        f"{[o[4] for o in occ]}; at camera 0 it keeps {kept} of "
+        f"{int(cut0.n_selected)} rows; its 256x256 render needs "
+        f"{int(occ_out.n_dup)} of 2^17 entries, truncated "
+        f"{bool(occ_out.truncated)}")
+    return dict(b1=post_launches[0] + occ_launches[0],
+                b2=post_launches[1] + occ_launches[1],
+                b1_frame=b1, b2_frame=b2, b1_err=b1_err, b2_err=b2_err)
 
 
 def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
@@ -908,26 +1400,23 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
     lod_launch_ms = bare_launch_ms(lod_args, lod_opts)
     lod_plain_ms = cuda_time_ms(lambda: blend_forward_plain(
         *lod_args, **lod_opts), 2)
-    feats_l, _, starts_l, counts_l = lod_args
-    l_eval, l_applied, l_cand = work_of_frame(
+    feats_l, _, _, counts_l = lod_args
+    l_eval, l_applied, l_cand, l_read = work_of_frame(
         *lod_args, width, height, 32, 32, lod_opts["t_eps"],
         lod_opts["alpha_min"], use_lod=True)
     l_entries = int(counts_l.sum())
-    l_bytes = (feats_l.shape[0] * 12 * 4 + l_entries * 4
-               + 2 * starts_l.numel() * 4 + width * height * (4 * 4 + 4 + 4))
+    l_bytes, l_nread, l_rows = frame_bytes(lod_args, l_read, width, height,
+                                           4 * 4 + 4 + 4)
     l_ops = OPS_EVAL * l_eval + OPS_APPLY * l_applied + OPS_LOD * l_cand
-    l_t_bytes = l_bytes / PEAK_BYTES_S * 1e3
-    l_t_ops = l_ops / PEAK_F32_S * 1e3
-    lod_bound_ms = max(l_t_bytes, l_t_ops)
-    lod_bound_by = "bytes" if l_t_bytes >= l_t_ops else "operations"
-    log(f"  {feats_l.shape[0]} rows, {l_entries} entries, {l_eval} evaluated, "
+    lod_bound_ms, lod_bound_by, lod_parts = bound(l_bytes, l_ops)
+    log(f"  {feats_l.shape[0]} rows, {l_entries} entries ({l_nread} read, "
+        f"naming {l_rows} rows), {l_eval} evaluated, "
         f"{l_cand} candidate and {l_applied} applied (entry, pixel) pairs; "
         f"ops {OPS_EVAL}/eval + {OPS_APPLY}/applied + {OPS_LOD}/candidate "
         f"(LOD) = {l_ops:.4e} f32 ops, {l_bytes} bytes")
     log(f"  blend_forward LOD: launch {lod_launch_ms:.4f} ms, wrapper "
         f"{lod_wrap_ms:.4f} ms, plain version {lod_plain_ms:.2f} ms, bound "
-        f"{lod_bound_ms:.4f} ms ({lod_bound_by}; bytes {l_t_bytes:.4f} ms, "
-        f"ops {l_t_ops:.4f} ms) [{smi}]")
+        f"{lod_bound_ms:.4f} ms ({lod_bound_by}; {lod_parts}) [{smi}]")
     return dict(
         max_err=max_err,
         b1={"lod_stream": stream_launches, "lod_auto": auto_launches,
@@ -956,8 +1445,7 @@ def main():
     from hlod_gaussians_torch.ops.binning import bin_gaussians
     from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
     from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
-                                                        blend_forward_plain,
-                                                        tile_image)
+                                                        blend_forward_plain)
     from hlod_gaussians_torch.train import flat
     from hlod_gaussians_torch.train.post import create_from_dhier
     from hlod_gaussians_torch.utils.camera import make_camera
@@ -1101,23 +1589,19 @@ def main():
                              warmup=3)
     plain_ms = cuda_time_ms(lambda: blend_forward_plain(*frame_args,
                                                         **frame_opts), 3)
-    evaluated, applied, _ = work_of_frame(*frame_args, width, height, 32, 32,
-                                          cfg.t_eps, cfg.alpha_min)
+    evaluated, applied, _, read = work_of_frame(
+        *frame_args, width, height, 32, 32, cfg.t_eps, cfg.alpha_min)
     num_dup = int(bins0.num_dup)
-    n_tiles = bins0.tile_starts.numel()
-    bytes_moved = (n_g * 12 * 4 + num_dup * 4 + 2 * n_tiles * 4
-                   + width * height * (4 * 4 + 4 + 4))
+    bytes_moved, n_read, n_rows = frame_bytes(frame_args, read, width,
+                                              height, 4 * 4 + 4 + 4)
     ops = OPS_EVAL * evaluated + OPS_APPLY * applied
-    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"  bench frame: {num_dup} entries, {evaluated} evaluated and "
-        f"{applied} applied (entry, pixel) pairs, {ops:.4e} f32 ops, "
-        f"{bytes_moved} bytes")
+    bound_ms, bound_by, parts = bound(bytes_moved, ops)
+    log(f"  bench frame: {num_dup} entries ({n_read} read, naming {n_rows} "
+        f"of {n_g} rows), {evaluated} evaluated and {applied} applied "
+        f"(entry, pixel) pairs, {ops:.4e} f32 ops, {bytes_moved} bytes")
     log(f"  blend_forward kernel {kernel_ms:.4f} ms, plain version "
-        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; bytes "
-        f"{t_bytes:.4f} ms, ops {t_ops:.4f} ms) [{smi}]")
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; {parts}) "
+        f"[{smi}]")
 
     # ---- 2b. kernel B2 vs plain -----------------------------------------
     log("[2b] kernel B2 (blend backward) vs plain version")
@@ -1133,27 +1617,18 @@ def main():
                          warmup=3)
     b2_plain_ms = cuda_time_ms(lambda: blend_backward_plain(*b2_args,
                                                             **b2_opts), 3)
-    # the work these inputs need: every entry before a pixel's n_contrib
-    # decides whether it was applied, and the applied pairs (the forward's)
-    # carry the gradient; the kernel walks every pixel of a tile down from
-    # the tile's largest n_contrib
-    needed = int(got[2].sum())
-    walked = int(tile_image(got[2], width, height, 32, 32).amax(1).sum()
-                 ) * 32 * 32
-    b2_bytes = (n_g * 12 * 4 + num_dup * 4 + 2 * n_tiles * 4
-                + width * height * (4 + 4 + 4 * 4 + 4)
-                + bins0.sorted_gid.numel() * 12 * 4)
-    b2_ops = B2_OPS_NEED * needed + B2_OPS_APPLY * applied
-    b2_t_bytes = b2_bytes / PEAK_BYTES_S * 1e3
-    b2_t_ops = b2_ops / PEAK_F32_S * 1e3
-    b2_bound_ms = max(b2_t_bytes, b2_t_ops)
-    b2_bound_by = "bytes" if b2_t_bytes >= b2_t_ops else "operations"
-    log(f"  bench frame: {needed} needed, {applied} applied and {walked} "
-        f"walked (entry, pixel) pairs, {b2_ops:.4e} f32 ops, {b2_bytes} "
+    # the kernel walks every pixel of a tile down from the tile's largest
+    # n_contrib
+    needed, b2_bytes, b2_ops, b2_walk, b2_rows = b2_work(
+        frame_args, got, applied, width, height)
+    b2_bound_ms, b2_bound_by, b2_parts = bound(b2_bytes, b2_ops)
+    log(f"  bench frame: {needed} needed, {applied} applied and "
+        f"{b2_walk * 32 * 32} walked (entry, pixel) pairs, {b2_walk} entries "
+        f"walked naming {b2_rows} rows, {b2_ops:.4e} f32 ops, {b2_bytes} "
         "bytes")
     log(f"  blend_backward kernel {b2_ms:.4f} ms, plain version "
         f"{b2_plain_ms:.2f} ms, bound {b2_bound_ms:.4f} ms ({b2_bound_by}; "
-        f"bytes {b2_t_bytes:.4f} ms, ops {b2_t_ops:.4f} ms) [{smi}]")
+        f"{b2_parts}) [{smi}]")
 
     # ---- 3. flat serving: the main path ---------------------------------
     log("[3] flat serving: 8 requests, render_arrays 1920x1080, "
@@ -1307,9 +1782,14 @@ def main():
 
     lodr = full_lod_phases(dev, width, height, bg, smi)
     max_err = max(max_err, lodr["max_err"])
+    torch.cuda.empty_cache()
 
-    # ---- 12. kernel table -------------------------------------------------
-    log(f"[12] done in {time.perf_counter() - t_start:.1f} s")
+    postr = post_phase(dev, width, height, smi)
+    max_err = max(max_err, postr["b1_err"])
+    b2_err = max(b2_err, postr["b2_err"])
+
+    # ---- 13. kernel table -------------------------------------------------
+    log(f"[13] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
@@ -1317,9 +1797,10 @@ def main():
         "source": "hlod_gaussians_torch/csrc/blend_forward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
         "launches": (flat_launches + lod_launches + train_launches
-                     + sum(lodr["b1"].values())),
+                     + sum(lodr["b1"].values()) + postr["b1"]),
         "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
-                                  "train": train_launches}, **lodr["b1"]),
+                                  "train": train_launches}, **lodr["b1"],
+                                 post=postr["b1"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1327,20 +1808,24 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
         "lod_stream_tau0": lodr["tau0"],
+        "post_frame": postr["b1_frame"],
     }, {
         "name": "blend_backward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_backward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
-        "launches": flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values()),
+        "launches": (flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values())
+                     + postr["b2"]),
         "launches_by_path": dict({"flat": flat_b2, "lod": lod_b2,
-                                  "train": train_b2}, **lodr["b2"]),
+                                  "train": train_b2}, **lodr["b2"],
+                                 post=postr["b2"]),
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
         "bound_ms": b2_bound_ms,
         "bound_by": b2_bound_by,
         "library_ms": None,
+        "post_frame": postr["b2_frame"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

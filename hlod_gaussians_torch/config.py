@@ -1,7 +1,8 @@
 """Training and rasterizer configuration (port of
-hlod_gaussians_tpu/config.py:50-123).
+hlod_gaussians_tpu/config.py:50-156).
 
-`OptimizationConfig` and `RasterizerConfig` are ported so far. The TPU-only
+`OptimizationConfig`, `RasterizerConfig` and `PostConfig` are ported so
+far. The TPU-only
 `tpb` field (tiles per Pallas grid program) has no counterpart: the CUDA
 kernels run one block per tile.
 """
@@ -73,3 +74,35 @@ class RasterizerConfig:
     # raises (its kernel B2 backward is refused). The render_lod entry point
     # forces this on.
     inference: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PostConfig:
+    """Hierarchy post-optimization settings (reference train_post.py:63-109)."""
+
+    densify_interval: int = 5000
+    lr_multiplier: float = 1.0
+    max_cap: int = 50_000_000
+    mcmc_densification: bool = True
+    mcmc_noise_lr: float = 0.0
+    lambda_scaling: float = 0.0
+    lambda_opacity: float = 0.01
+    # As in the JAX package: no Gaussian_Interpolation, Gradient_Propagation,
+    # Propagation_Strength or lambda_hierarchy (the fork never reads them).
+    # exact subtree bounding spheres for the SPT frustum culls; False = the
+    # node's own 3*max_scale (the reference default, which may clip
+    # protruding SPT members)
+    use_bounding_spheres: bool = True
+    use_occlusion_culling: bool = False
+    use_frustum_culling: bool = True
+    use_mip_respawn: bool = False
+    spt_root_volume: float = 100.0
+    spt_target_granularity: float = 0.00228
+    min_spt_size: int = 256
+    cache_spts: bool = True
+    reuse_spt_tolerance: float = 0.9
+    max_gaussian_budget: int = 100_000_000
+    distance_multiplier_until_budget: float = 1.5
+    max_sh_degree: int = 1
+    dead_opacity: float = 0.005     # relocate_gs threshold (gaussian_model.py:1594)
+    grow_fraction: float = 0.05     # add_new_gs growth per round (gaussian_model.py:1703)

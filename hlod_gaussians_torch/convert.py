@@ -3,8 +3,10 @@
 `state_from_numpy` takes the fields of a JAX `GaussianState` as numpy arrays
 (`np.asarray` of each field) and returns this package's state, so both
 packages render the same scene. `train_state_from_numpy` does the same for
-a JAX `FlatTrainState`, so both packages take the same training step.
-Nothing here imports JAX: the caller does the `np.asarray`.
+a JAX `FlatTrainState`, so both packages take the same training step;
+`post_state_from_numpy` for a JAX `PostTrainState`, and `forest_from_numpy`
+turns a JAX `SPTForest`'s arrays into this package's forest. Nothing here
+imports JAX: the caller does the `np.asarray`.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import numpy as np
 import torch
 
 from hlod_gaussians_torch import optim
+from hlod_gaussians_torch.hierarchy.spt import SPTForest
 from hlod_gaussians_torch.models.gaussians import GaussianState
 from hlod_gaussians_torch.train.flat import FlatTrainState
+from hlod_gaussians_torch.train.post import PostTrainState
 
 _TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(GaussianState)
                        if f.name not in ("n_skybox", "n_scaffold"))
@@ -41,6 +45,20 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], *, n_skybox: int,
                          n_scaffold=int(n_scaffold))
 
 
+def _adam_from_numpy(adam: Mapping, names, device) -> optim.AdamState:
+    for part in ("m", "v"):
+        missing = [k for k in names if k not in adam[part]]
+        if missing:
+            raise ValueError(f"missing Adam {part} tensors: {missing}")
+    return optim.AdamState(m={k: _f32(adam["m"][k], device) for k in names},
+                           v={k: _f32(adam["v"][k], device) for k in names},
+                           step=int(adam["step"]))
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
 def train_state_from_numpy(arrays: Mapping, *, n_skybox: int,
                            n_scaffold: int = 0,
                            device=torch.device("cuda")) -> FlatTrainState:
@@ -52,24 +70,43 @@ def train_state_from_numpy(arrays: Mapping, *, n_skybox: int,
     """
     g = state_from_numpy(arrays["gaussians"], n_skybox=n_skybox,
                          n_scaffold=n_scaffold, device=device)
-
-    def f32(a):
-        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
-
-    adam = arrays["adam"]
-    names = tuple(g.params())
-    for part in ("m", "v"):
-        missing = [k for k in names if k not in adam[part]]
-        if missing:
-            raise ValueError(f"missing Adam {part} tensors: {missing}")
     return FlatTrainState(
-        gaussians=g,
-        adam=optim.AdamState(m={k: f32(adam["m"][k]) for k in names},
-                             v={k: f32(adam["v"][k]) for k in names},
-                             step=int(adam["step"])),
-        xyz_grad_accum=f32(arrays["xyz_grad_accum"]),
+        gaussians=g, adam=_adam_from_numpy(arrays["adam"], tuple(g.params()),
+                                           device),
+        xyz_grad_accum=_f32(arrays["xyz_grad_accum"], device),
         denom=torch.tensor(np.asarray(arrays["denom"], dtype=np.int32),
                            device=device),
-        max_radii=f32(arrays["max_radii"]),
+        max_radii=_f32(arrays["max_radii"], device),
         step=int(arrays["step"]))
 
+
+def post_state_from_numpy(arrays: Mapping, *, n_skybox: int,
+                          n_scaffold: int = 0,
+                          device=torch.device("cuda")) -> PostTrainState:
+    """The numpy leaves of a JAX PostTrainState -> this package's state:
+
+        {"gaussians": {field: array},                # as state_from_numpy
+         "adam": {"m": {param: array}, "v": {param: array}, "step": int},
+         "step": int}
+    """
+    g = state_from_numpy(arrays["gaussians"], n_skybox=n_skybox,
+                         n_scaffold=n_scaffold, device=device)
+    return PostTrainState(
+        gaussians=g, adam=_adam_from_numpy(arrays["adam"], tuple(g.params()),
+                                           device),
+        step=int(arrays["step"]))
+
+
+def forest_from_numpy(arrays: Mapping[str, np.ndarray],
+                      device=torch.device("cuda")) -> SPTForest:
+    """{field: array} for every field of a JAX SPTForest -> this package's
+    forest on `device` (float32 positions and windows, int32 indices)."""
+    missing = [k for k in SPTForest._fields if k not in arrays]
+    if missing:
+        raise ValueError(f"missing SPTForest fields: {missing}")
+    ints = ("entry_gid", "entry_spt", "spt_root_global", "ut_nodes",
+            "ut_spt_id")
+    return SPTForest(**{
+        k: torch.tensor(np.asarray(arrays[k], dtype=np.int32 if k in ints
+                                   else np.float32), device=device)
+        for k in SPTForest._fields})

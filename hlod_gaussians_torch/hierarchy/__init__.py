@@ -13,3 +13,14 @@ from hlod_gaussians_torch.hierarchy.cut import (  # noqa: F401
     sanity_check_hierarchy,
     interpolate_with_parents,
 )
+from hlod_gaussians_torch.hierarchy.spt import (  # noqa: F401
+    SPTForest,
+    SPTCut,
+    build_spt,
+    spt_cut,
+)
+from hlod_gaussians_torch.hierarchy.mcmc import (  # noqa: F401
+    compute_relocation,
+    relocate_gs,
+    add_new_gs,
+)

@@ -228,8 +228,8 @@ def _merge_level(arrays, lo_i: int, hi_i: int, clamp_opacity: bool = True):
     mpos = a0 * p0 + a1 * p1
     msh = a0[..., None] * sh0 + a1[..., None] * sh1
 
-    cov0 = _unpack_cov3d(gaussian_math.compute_cov3d(s0, q0))
-    cov1 = _unpack_cov3d(gaussian_math.compute_cov3d(s1, q1))
+    cov0 = gaussian_math.unpack_cov3d(gaussian_math.compute_cov3d(s0, q0))
+    cov1 = gaussian_math.unpack_cov3d(gaussian_math.compute_cov3d(s1, q1))
     d0 = p0 - mpos
     d1 = p1 - mpos
     mcov = (a0[..., None] * (cov0 + d0[:, :, None] * d0[:, None, :])
@@ -283,14 +283,6 @@ def _merge_level_avg(arrays, lo_i: int, hi_i: int):
                                 1e-12),
             mean(opacity), mean(sh), blo, bhi,
             torch.max(bhi - blo, dim=-1).values)
-
-
-def _unpack_cov3d(cov6):
-    """[...,6] packed -> [...,3,3] symmetric matrix."""
-    xx, xy, xz, yy, yz, zz = (cov6[..., i] for i in range(6))
-    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
-                        torch.stack([xy, yy, yz], dim=-1),
-                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
 
 
 def _proper_perms():

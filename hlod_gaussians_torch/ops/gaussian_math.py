@@ -58,6 +58,14 @@ def compute_cov3d(scale, quat, scale_modifier=1.0):
     return torch.stack(_cov3d_cols(sx, sy, sz, qw, qx, qy, qz), dim=-1)
 
 
+def unpack_cov3d(cov6):
+    """[...,6] packed -> [...,3,3] symmetric matrix."""
+    xx, xy, xz, yy, yz, zz = (cov6[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
+
+
 def _affine_cols(mx, my, mz, mat, j):
     """Column j of the row-vector transform p @ mat[:3] + mat[3]."""
     return mx * mat[0, j] + my * mat[1, j] + mz * mat[2, j] + mat[3, j]

@@ -151,6 +151,50 @@ def _check_entries(feats, sorted_gid, tile_starts, tile_counts, gw, gh):
     _check(tile_counts, "tile_counts", torch.int32, (gw * gh,))
 
 
+def launch_blend_forward(feats, sorted_gid, tile_starts, tile_counts, img4,
+                         final_t, n_contrib, seen, *, width: int, height: int,
+                         tile_w: int, tile_h: int, t_eps: float,
+                         alpha_min: float, use_lod: bool) -> None:
+    """One launch of kernel B1 on the current stream into preallocated
+    outputs (seen zeroed, or None), with no checks and no count: the C call
+    that blend_forward makes, also timed bare."""
+    gw, gh = tile_grid(width, height, tile_w, tile_h)
+    lib = _library("blend_forward")
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = lib.blend_forward_launch(
+            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
+            tile_counts.data_ptr(), gw * gh, gw, tile_w, tile_h, width,
+            height, float(t_eps), float(alpha_min), int(use_lod),
+            img4.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+            seen.data_ptr() if seen is not None else None, stream)
+    if err != 0:
+        raise RuntimeError("blend_forward kernel launch failed: "
+                           f"{lib.blend_forward_error_string(err).decode()}")
+
+
+def launch_blend_backward(feats, sorted_gid, tile_starts, tile_counts,
+                          final_t, n_contrib, g_img4, g_final_t, egrads, *,
+                          width: int, height: int, tile_w: int, tile_h: int,
+                          alpha_min: float, use_lod: bool) -> None:
+    """One launch of kernel B2 on the current stream into a zeroed
+    [max_dup, 12] egrads, with no checks and no count: the C call that
+    blend_backward makes, also timed bare."""
+    gw, gh = tile_grid(width, height, tile_w, tile_h)
+    lib = _library("blend_backward")
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = lib.blend_backward_launch(
+            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
+            tile_counts.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+            g_img4.data_ptr(), g_final_t.data_ptr(), gw * gh, gw, tile_w,
+            tile_h, width, height, float(alpha_min), int(use_lod),
+            egrads.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("blend_backward kernel launch failed: "
+                           f"{lib.blend_backward_error_string(err).decode()}")
+
+
 def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
                   width: int, height: int, tile_w: int, tile_h: int,
                   t_eps: float = 1e-4, alpha_min: float = 1.0 / 255.0,
@@ -180,18 +224,10 @@ def blend_forward(feats, sorted_gid, tile_starts, tile_counts, *,
     n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
     seen = (torch.zeros((n,), dtype=torch.uint8, device=dev)
             if want_seen else None)
-    lib = _library("blend_forward")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_forward_launch(
-            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
-            tile_counts.data_ptr(), gw * gh, gw, tile_w, tile_h, width,
-            height, float(t_eps), float(alpha_min), int(use_lod),
-            img4.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
-            seen.data_ptr() if seen is not None else None, stream)
-    if err != 0:
-        raise RuntimeError("blend_forward kernel launch failed: "
-                           f"{lib.blend_forward_error_string(err).decode()}")
+    launch_blend_forward(
+        feats, sorted_gid, tile_starts, tile_counts, img4, final_t,
+        n_contrib, seen, width=width, height=height, tile_w=tile_w,
+        tile_h=tile_h, t_eps=t_eps, alpha_min=alpha_min, use_lod=use_lod)
     blend_forward.launches += 1
     return img4, final_t, n_contrib, (seen.bool() if want_seen else None)
 
@@ -230,18 +266,10 @@ def blend_backward(feats, sorted_gid, tile_starts, tile_counts, final_t,
     max_dup = sorted_gid.shape[0]
     # entries past each tile's last applied one are never written
     egrads = torch.zeros((max_dup, N_FEATS), dtype=torch.float32, device=dev)
-    lib = _library("blend_backward")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_backward_launch(
-            feats.data_ptr(), sorted_gid.data_ptr(), tile_starts.data_ptr(),
-            tile_counts.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
-            g_img4.data_ptr(), g_final_t.data_ptr(), gw * gh, gw, tile_w,
-            tile_h, width, height, float(alpha_min), int(use_lod),
-            egrads.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("blend_backward kernel launch failed: "
-                           f"{lib.blend_backward_error_string(err).decode()}")
+    launch_blend_backward(
+        feats, sorted_gid, tile_starts, tile_counts, final_t, n_contrib,
+        g_img4, g_final_t, egrads, width=width, height=height, tile_w=tile_w,
+        tile_h=tile_h, alpha_min=alpha_min, use_lod=use_lod)
     blend_backward.launches += 1
     return egrads
 

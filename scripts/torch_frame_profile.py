@@ -2,7 +2,7 @@
 """Device-time profile of the PyTorch port's serving frames and training
 step on one GPU.
 
-    python3 scripts/torch_frame_profile.py [--frames 8] [--path lod_stream]
+    python3 scripts/torch_frame_profile.py [--frames 8] [--path lod_stream|post]
 
 By default serves the flat 1080p bench request (render_arrays, 100k
 Gaussians, SH 3, 32x32 tiles, tight binning) and the tau-3 LOD request of
@@ -12,10 +12,14 @@ chip_smoke.py, and takes the flat training step of chip_smoke.py
 (1,048,575 nodes, SH 3) and profiles render_lod_stream at tau 0 and tau 15
 over the 26 bench cameras, after 6 warm-up frames, and times the stages of
 one frame of each (cut, interpolation, projection + SH, binning, blend).
-Each path runs under torch.profiler and prints: the CUDA-event time per
-frame (or step), the host wall time, the device busy time (union of CUDA
-kernel intervals), the busy share of the CUDA-event window, kernel
-launches per frame, and the kernels with the most device time. Needs a
+With ``--path post`` it builds chip_smoke.py's post-optimization bench tree
+(4,194,303 nodes, SH 1), perturbs it as phase [12] does and profiles
+train.post.post_train_step over the 40-view 1080p orbit (each step's SPT
+cut included), after 3 warm-up steps. Each path runs under torch.profiler
+and prints: the CUDA-event time per frame (or step), the host wall time,
+the device busy time (union of CUDA kernel intervals), the busy share of
+the CUDA-event window, kernel launches per frame, and the kernels with the
+most device time. Needs a
 CUDA device.
 """
 
@@ -195,13 +199,61 @@ def lod_stream_profiles(dev, frames):
               flush=True)
 
 
+def post_profiles(dev, frames):
+    """post_train_step on the post bench tree, each step's SPT cut
+    included, over the orbit's views in turn."""
+    import torch
+    from chip_smoke import (post_bench_cameras, post_bench_dhier,
+                            post_targets, perturb_post_dhier)
+    from hlod_gaussians_torch.config import PostConfig, RasterizerConfig
+    from hlod_gaussians_torch.hierarchy import spt as spt_mod
+    from hlod_gaussians_torch.train import post
+
+    width, height, extent = 1920, 1080, 25.0
+    pcfg = PostConfig()
+    d, build_s = post_bench_dhier(dev)
+    cap = d.nodes.shape[0] + (1 << 16)
+    cams = post_bench_cameras(width, height, dev)
+    t = post_targets(d, cap, cams, dev, width, height)
+    forest, gts = t["forest"], [v.image for v in t["views"]]
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=t["max_dup"], tight_binning=True)
+    bg = torch.zeros(3, device=dev)
+
+    def cut(cam):
+        return spt_mod.spt_cut_budgeted(
+            forest, cap, cam.campos, cam.full_proj, pcfg.max_gaussian_budget,
+            grow=pcfg.distance_multiplier_until_budget).gaussian_mask
+
+    box = [post.init_post_train(post.create_from_dhier(
+        perturb_post_dhier(d), cap, scene_radius=extent, device=dev))]
+    count = [0]
+    print(f"post: {d.nodes.shape[0]} nodes, built in {build_s:.2f} s, "
+          f"forest {forest.n_spts} SPTs, max_dup {cfg.max_dup}", flush=True)
+
+    def step():
+        i = count[0] % len(cams)
+        count[0] += 1
+        cam = cams[i]
+        box[0], aux = post.post_train_step(
+            box[0], cut(cam), cam.world_view, cam.full_proj, cam.campos,
+            cam.tan_fovx, cam.tan_fovy, gts[i], bg, extent, post=pcfg,
+            cfg=cfg, width=width, height=height, sh_degree=1)
+        return aux
+
+    profile("post step", step, frames)
+    aux = step()
+    print(f"post step: truncated {bool(aux.truncated)}, loss "
+          f"{float(aux.loss):.6f}, rendered rows {int(aux.n_rendered)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--path", choices=("serve_train", "lod_stream"),
+    ap.add_argument("--path", choices=("serve_train", "lod_stream", "post"),
                     default="serve_train",
-                    help="the flat and LOD requests and the train step, or "
-                    "the full-size LOD stream")
+                    help="the flat and LOD requests and the train step, "
+                    "the full-size LOD stream, or the post step")
     args = ap.parse_args()
 
     import torch
@@ -225,6 +277,9 @@ def main():
     dev = torch.device("cuda")
     if args.path == "lod_stream":
         lod_stream_profiles(dev, args.frames)
+        return 0
+    if args.path == "post":
+        post_profiles(dev, args.frames)
         return 0
     width, height = 1920, 1080
     cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,

@@ -1,18 +1,22 @@
 """The CUDA blend kernels (B1 forward, B2 backward) against their plain
 PyTorch versions on the card, and the differentiable kernel path against
-the same render on the CPU. Every test here is marked `cuda` and skips
+the same render on the CPU, and the post-optimization slice (SPT cuts, MCMC
+relocation and growth, one post step) on the card against the CPU. Every
+test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=. python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from hlod_gaussians_torch import render
-from hlod_gaussians_torch.config import RasterizerConfig
+from hlod_gaussians_torch.config import OptimizationConfig, RasterizerConfig
 from hlod_gaussians_torch.ops import gaussian_math, rasterize_cuda
 from hlod_gaussians_torch.ops.binning import bin_gaussians
 from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
@@ -298,3 +302,147 @@ def test_cuda_stream_frames_match_cpu(crossover, cuda_device):
     for (gi, gn, gt, gs), (ci, cn, ct, cs) in zip(outs["cuda"], outs["cpu"]):
         assert (gn, gt, gs) == (cn, ct, cs)
         torch.testing.assert_close(gi, ci, atol=1e-4, rtol=0)
+
+
+def _post_scene(dev, n=200, cap=512, seed=6):
+    """A small post-optimization state (built tree, 8 skybox rows) on
+    `dev`, its SPT forest and the working set of a camera at the origin."""
+    from hlod_gaussians_torch.config import PostConfig
+    from hlod_gaussians_torch.data.dhier import DHier
+    from hlod_gaussians_torch.hierarchy import build, spt
+    from hlod_gaussians_torch.train import post
+    pts, scales, quats, ops, shs = _leaves(n, seed)
+    h = build.build_hierarchy(pts, scales, quats, ops, shs[:, :4],
+                              device=torch.device("cpu"))
+    d = DHier(sh_degree=1, pos=h.pos, quat=h.quat,
+              log_scale=np.log(h.scale).astype(np.float32),
+              opacity=np.clip(h.opacity, 0.01, 0.99).astype(np.float32),
+              shs=h.sh.astype(np.float32), nodes=h.nodes)
+    state = post.create_from_dhier(d, cap, skybox_num=8, scene_radius=3.0,
+                                   device=dev)
+    pcfg = PostConfig(spt_root_volume=1e-2, min_spt_size=4,
+                      spt_target_granularity=0.05)
+    forest = post.rebuild_spt(state, post=pcfg)
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, W, H, device=dev)
+    cut = spt.spt_cut(forest, cap, cam.campos, cam.full_proj)
+    return state, forest, cam, cut, pcfg
+
+
+@pytest.mark.cuda
+def test_cuda_spt_cut_matches_cpu(cuda_device):
+    """The SPT forest built for the card and its cuts (frustum on and off,
+    three multipliers, the budgeted cut) equal the CPU's exactly."""
+    from hlod_gaussians_torch.hierarchy import spt
+    (_, f_cpu, cam_cpu, _, _), (_, f_gpu, cam_gpu, _, _) = (
+        _post_scene(dev) for dev in (torch.device("cpu"), cuda_device))
+    assert f_gpu.n_spts == f_cpu.n_spts > 0
+    for k in spt.SPTForest._fields:
+        assert torch.equal(getattr(f_gpu, k).cpu(), getattr(f_cpu, k)), k
+    cap = 512
+    for frustum in (True, False):
+        for mult in (0.5, 1.0, 3.0):
+            a = spt.spt_cut(f_cpu, cap, cam_cpu.campos, cam_cpu.full_proj,
+                            mult, use_frustum=frustum)
+            b = spt.spt_cut(f_gpu, cap, cam_gpu.campos, cam_gpu.full_proj,
+                            mult, use_frustum=frustum)
+            assert torch.equal(a.gaussian_mask, b.gaussian_mask.cpu())
+            assert torch.equal(a.spt_selected, b.spt_selected.cpu())
+            assert int(a.n_selected) == int(b.n_selected) > 0
+    a = spt.spt_cut_budgeted(f_cpu, cap, cam_cpu.campos, cam_cpu.full_proj,
+                             50)
+    b = spt.spt_cut_budgeted(f_gpu, cap, cam_gpu.campos, cam_gpu.full_proj,
+                             50)
+    assert torch.equal(a.gaussian_mask, b.gaussian_mask.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_relocate_gs_matches_cpu(cuda_device):
+    """add_new_gs and relocate_gs on the card with the CPU run's host draws
+    give the CPU's node table and alive exactly, parameters to 4 ulp."""
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.hierarchy import mcmc
+    from hlod_gaussians_torch.models.gaussians import NODE_CHILD_COUNT
+    draws, out = [], []
+    sample_hosts = mcmc.sample_hosts
+
+    def recorded(probs, k, generator=None):
+        draws.append(sample_hosts(probs, k, generator))
+        return draws[-1]
+
+    for dev in (torch.device("cpu"), cuda_device):
+        state = _post_scene(dev)[0]
+        leaf = torch.nonzero((state.nodes[:, NODE_CHILD_COUNT] == 0)
+                             & state.alive)[:, 0]
+        logit = state.opacity_logit.clone()
+        logit[leaf[::11]] = -7.0                       # dead leaves
+        state = dataclasses.replace(state, opacity_logit=logit)
+        adam = optim.init_adam(state.params())
+        if not out:         # the CPU run: a seeded generator, recorded
+            gen = torch.Generator().manual_seed(0)
+            add_kw = rel_kw = dict(generator=gen)
+            mcmc.sample_hosts = recorded
+        else:
+            add_kw = dict(sampled=draws[0].to(dev))
+            rel_kw = dict(sampled=draws[1].to(dev))
+        try:
+            g2, adam2, n_add = mcmc.add_new_gs(state, adam, 20, budget=64,
+                                               **add_kw)
+            g3, _, n_rel = mcmc.relocate_gs(g2, adam2, budget=64,
+                                            max_depth=20, **rel_kw)
+        finally:
+            mcmc.sample_hosts = sample_hosts
+        out.append((g3, int(n_add), int(n_rel)))
+    (a, na, ra), (b, nb, rb) = out
+    assert (na, ra) == (nb, rb) and na > 0 and ra > 0
+    for k in ("nodes", "alive"):
+        assert torch.equal(getattr(a, k), getattr(b, k).cpu()), k
+    for k in ("xyz", "log_scale", "opacity_logit", "f_dc", "quat"):
+        np.testing.assert_array_max_ulp(getattr(b, k).cpu().numpy(),
+                                        getattr(a, k).numpy(), maxulp=4)
+
+
+@pytest.mark.cuda
+def test_cuda_post_train_step_matches_cpu(cuda_device):
+    """One post_train_step on the card (B1, B2, the reduction, antialiasing
+    on, the skybox's geometry frozen) against the CPU step (plain
+    versions): Adam moments scaled to 3e-4, parameters to 1e-6 where
+    |g| > 1e-3 max|g| and within 2 lr elsewhere; one B1 and one B2
+    launch."""
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.train import post
+    gt = np.random.default_rng(8).uniform(0, 1, (3, H, W)).astype(np.float32)
+    new = []
+    for dev in (torch.device("cpu"), cuda_device):
+        state, _, cam, cut, pcfg = _post_scene(dev)
+        ts = post.init_post_train(dataclasses.replace(
+            state, f_dc=state.f_dc + 0.2))
+        cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                               max_dup=1 << 14)
+        launches = (rasterize_cuda.blend_forward.launches,
+                    rasterize_cuda.blend_backward.launches)
+        ts, aux = post.post_train_step(
+            ts, cut.gaussian_mask, cam.world_view, cam.full_proj, cam.campos,
+            cam.tan_fovx, cam.tan_fovy, torch.as_tensor(gt, device=dev),
+            torch.zeros(3, device=dev), 3.0, post=pcfg, cfg=cfg, width=W,
+            height=H)
+        n = int(dev.type == "cuda")
+        assert (rasterize_cuda.blend_forward.launches,
+                rasterize_cuda.blend_backward.launches) == (
+            launches[0] + n, launches[1] + n)
+        assert not bool(aux.truncated) and np.isfinite(float(aux.loss))
+        new.append(ts)
+    ref, got = new
+    lrs = optim.param_lrs(OptimizationConfig(), 0, 3.0)
+    for k, m_ref in ref.adam.m.items():
+        for part in ("m", "v"):
+            r = getattr(ref.adam, part)[k]
+            err = float((getattr(got.adam, part)[k].cpu() - r).abs().max())
+            assert err <= GRAD_ATOL * max(float(r.abs().max()), 1e-30), \
+                (part, k)
+        gabs = m_ref.abs()
+        big = gabs > 1e-3 * gabs.max()
+        diff = (getattr(got.gaussians, k).cpu()
+                - getattr(ref.gaussians, k)).abs()
+        assert not big.any() or float(diff[big].max()) <= 1e-6, k
+        assert float(diff.max()) <= 2 * lrs[k] + 1e-6, k
+    assert not got.adam.m["xyz"][:8].any()
