@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (hlod_gaussians_torch) on one NVIDIA
 GPU: builds the blend kernels, holds each to its plain PyTorch version,
 serves flat and hierarchical-LOD renders, takes flat training steps, and
-builds, streams, evaluates and maintains a full-size LOD tree through the
-public entry points, and prints the kernel table.
+builds, streams, evaluates and maintains a full-size LOD tree,
+post-optimizes a 4M-node tree on the card and out of core from a pinned
+host store through the public entry points, and prints the kernel table.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -80,7 +81,27 @@ Phases (any failure raises and exits non-zero):
      against their plain versions at a post frame, bare launch, wrapper and
      bound; then 4 steps with the occlusion cull (two B1 launches a step)
      on the state exported to a .dhier and resumed.
-  13. the {"kernels": [...]} line, then the device line.
+  13. out-of-core post-optimization at the JAX package's operating point
+     (scripts/offload_bench3.py): first train.offload.DeviceResidentTrainer
+     on a 48-point scene (budget 64), prefetch bitwise equal to no
+     prefetch and the sequential packed step matched; then the post bench
+     tree rebuilt (151 SPTs), packed into a 50,000,000-row pinned host
+     store (13.8 GB; the rows past the tree copies of its rows; allocation
+     and fill seconds, MemTotal); the orbit written as a COLMAP model by
+     data.colmap and read back through data.scene.load_colmap_scene (its
+     matrices within 1e-5 of make_camera's); CachedCutter's working sets
+     (1,701,479 / 2,062,953 / 1,864,463 rows min / max / mean, the budget
+     2,166,272, every cut within it); the trainer's first step, 8
+     resident steps and three orbit laps with the next view prefetched,
+     each untruncated and finite with one B1 and one B2 launch: step
+     times (CUDA events and wall), vs_resident, host prepare and apply
+     ms, fetched rows a steady step (511 / 49,152 / 14,105 at p50 / p90 /
+     mean), peak host RSS and device memory; after flush every row no
+     working set named, the ballast included, bitwise unchanged; B1 and B2
+     against their plain versions at an offload frame with bare launch,
+     wrapper and bound; then post_optimize_offloaded for 10 iterations
+     over the loaded views.
+  14. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -142,6 +163,21 @@ POST_LEAVES = 1 << 21
 POST_VIEWS, POST_ITERS, POST_DENSIFY, POST_OCC_ITERS = 40, 40, 10, 4
 POST_DEAD = 3 * 4096
 POST_FREE_ROWS = 1 << 16       # densify_round adds <= 2 x 4,096 rows a round
+ORBIT_FOV = (1.2, 0.8)
+# the JAX package's out-of-core operating point (scripts/offload_bench3.py
+# :85-245): the post bench tree packed into a 50M-row host store (the rows
+# past the tree copies of its rows), cut with CachedCutter at distance
+# multiplier 1.0 over the orbit, a budget of 1.05 x the largest working
+# set; the first step, 8 on view 0, then three laps of the orbit with the
+# next view prefetched. OFFLOAD_r05.json's structural counts at this point:
+# working sets min / max / mean, the budget, and the fetched rows of the
+# steady laps' steps at p50 / p90 / mean
+OFFLOAD_STORE_ROWS = 50_000_000
+OFFLOAD_RESIDENT, OFFLOAD_LAPS, OFFLOAD_LOOP_ITERS = 8, 3, 10
+OFFLOAD_WS = (1_701_479, 2_062_953, 1_864_463)
+OFFLOAD_BUDGET = 2_166_272
+OFFLOAD_CHURN = (511, 49_152, 14_105)
+OFFLOAD_SPTS = 151
 
 
 def log(*a):
@@ -730,6 +766,62 @@ def bound(n_bytes, ops):
             else "operations", f"bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms")
 
 
+def frame_kernels(run, dev, width, height, where, smi):
+    """B1 and B2 at the frame run() renders (32x32 tiles): B1 against its
+    plain version to 1e-4 with n_contrib exact, B2 to 3e-4 scaled; the bare
+    launch, the wrapper, the plain version and the bound of each -> (B1's
+    numbers, B2's numbers, B1's error, B2's error)."""
+    import torch
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
+                                                        blend_forward_plain)
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    fargs, fopts = capture_b1_inputs(run)
+    fargs = tuple(a.detach() for a in fargs)
+    got = kernel(*fargs, **fopts)
+    torch.cuda.synchronize()
+    ref = blend_forward_plain(*fargs, **fopts)
+    b1_err = compare(where, got, ref, FRAME_ATOL)
+    del ref
+    b1 = dict(ms=bare_launch_ms(fargs, fopts),
+              wrapper_ms=cuda_time_ms(lambda: kernel(*fargs, **fopts), 20,
+                                      warmup=3),
+              plain_ms=cuda_time_ms(lambda: blend_forward_plain(
+                  *fargs, **fopts), 2))
+    feats, sorted_gid, _, counts = fargs
+    n_entries = int(counts.sum())
+    evaluated, applied, _, read = work_of_frame(
+        *fargs, width, height, 32, 32, fopts["t_eps"], fopts["alpha_min"])
+    b1_bytes, b1_read, b1_rows = frame_bytes(fargs, read, width, height,
+                                             4 * 4 + 4 + 4)
+    b1["bound_ms"], b1["bound_by"], b1_parts = bound(
+        b1_bytes, OPS_EVAL * evaluated + OPS_APPLY * applied)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b2_err, (bargs, bopts) = check_backward(
+        where, fargs, dict(fopts, use_lod=False), got, gen)
+    needed, b2_bytes, b2_ops, b2_walk, b2_rows = b2_work(
+        fargs, got, applied, width, height)
+    b2 = dict(ms=bare_b2_launch_ms(bargs, bopts),
+              wrapper_ms=cuda_time_ms(lambda: kernel_b2(*bargs, **bopts), 20,
+                                      warmup=3),
+              plain_ms=cuda_time_ms(lambda: blend_backward_plain(
+                  *bargs, **bopts), 2))
+    b2["bound_ms"], b2["bound_by"], b2_parts = bound(b2_bytes, b2_ops)
+    log(f"  {where}: {feats.shape[0]} rows, {n_entries} entries of "
+        f"max_dup {sorted_gid.shape[0]}; B1 reads {b1_read} entries naming "
+        f"{b1_rows} rows ({b1_bytes} bytes), B2 walks {b2_walk} naming "
+        f"{b2_rows} ({b2_bytes} bytes); {evaluated} evaluated, {applied} "
+        f"applied and {needed} B2-needed (entry, pixel) pairs")
+    for name, k, parts in (("blend_forward", b1, b1_parts),
+                            ("blend_backward", b2, b2_parts)):
+        log(f"  {name} at the {where}: launch {k['ms']:.4f} ms, wrapper "
+            f"{k['wrapper_ms']:.4f} ms, plain version {k['plain_ms']:.2f} ms, "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}; {parts}) "
+            f"[{smi}]")
+    return b1, b2, b1_err, b2_err
+
+
 def post_bench_leaves(n=POST_LEAVES):
     """The leaves of the JAX package's post-optimization bench tree
     (scripts/offload_bench3.py:47-66): half on a shell of radius ~20, half
@@ -753,20 +845,26 @@ def post_bench_leaves(n=POST_LEAVES):
     return pts, scales, quats, ops, shs
 
 
-def post_bench_cameras(width, height, dev, n=POST_VIEWS):
-    """The 40-view orbit (offload_bench3.py:107-119): yaw 2 pi i / 40, the
-    ring point of radius 8 passed as make_camera's translation, as there."""
-    from hlod_gaussians_torch.utils.camera import make_camera
-    cams = []
+def orbit_poses(n=POST_VIEWS):
+    """The 40-view orbit (offload_bench3.py:107-119) as (R, t) pairs for
+    make_camera: yaw 2 pi i / 40, the ring point of radius 8 passed as the
+    translation, as there."""
+    poses = []
     for i in range(n):
         a = 2 * np.pi * i / n
         R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
                       [-np.sin(a), 0, np.cos(a)]], np.float32)
         campos = np.array([8.0 * np.sin(a), 0.0, -8.0 * np.cos(a)],
                           np.float32)
-        cams.append(make_camera(R, campos, 1.2, 0.8, width, height,
-                                device=dev))
-    return cams
+        poses.append((R, campos))
+    return poses
+
+
+def post_bench_cameras(width, height, dev, n=POST_VIEWS):
+    """The orbit's cameras (fov 1.2 x 0.8) at width x height on `dev`."""
+    from hlod_gaussians_torch.utils.camera import make_camera
+    return [make_camera(R, t, ORBIT_FOV[0], ORBIT_FOV[1], width, height,
+                        device=dev) for R, t in orbit_poses(n)]
 
 
 def post_bench_dhier(dev, n=POST_LEAVES):
@@ -887,8 +985,6 @@ def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
     from hlod_gaussians_torch.models import gaussians as gm
     from hlod_gaussians_torch.models import reorder
     from hlod_gaussians_torch.ops import rasterize_cuda
-    from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
-                                                        blend_forward_plain)
     from hlod_gaussians_torch.pipeline import full_train
     from hlod_gaussians_torch.train import post
     kernel = rasterize_cuda.blend_forward
@@ -1067,49 +1163,8 @@ def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{smi}]")
 
     # B1 and B2 at this post frame
-    fargs, fopts = capture_b1_inputs(forward)
-    fargs = tuple(a.detach() for a in fargs)
-    got = kernel(*fargs, **fopts)
-    torch.cuda.synchronize()
-    ref = blend_forward_plain(*fargs, **fopts)
-    b1_err = compare("post frame", got, ref, FRAME_ATOL)
-    del ref
-    b1 = dict(ms=bare_launch_ms(fargs, fopts),
-              wrapper_ms=cuda_time_ms(lambda: kernel(*fargs, **fopts), 20,
-                                      warmup=3),
-              plain_ms=cuda_time_ms(lambda: blend_forward_plain(
-                  *fargs, **fopts), 2))
-    feats, _, _, counts = fargs
-    n_entries = int(counts.sum())
-    evaluated, applied, _, read = work_of_frame(
-        *fargs, width, height, 32, 32, fopts["t_eps"], fopts["alpha_min"])
-    b1_bytes, b1_read, b1_rows = frame_bytes(fargs, read, width, height,
-                                             4 * 4 + 4 + 4)
-    b1["bound_ms"], b1["bound_by"], b1_parts = bound(
-        b1_bytes, OPS_EVAL * evaluated + OPS_APPLY * applied)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    b2_err, (bargs, bopts) = check_backward(
-        "post frame", fargs, dict(fopts, use_lod=False), got, gen)
-    needed, b2_bytes, b2_ops, b2_walk, b2_rows = b2_work(
-        fargs, got, applied, width, height)
-    b2 = dict(ms=bare_b2_launch_ms(bargs, bopts),
-              wrapper_ms=cuda_time_ms(lambda: kernel_b2(*bargs, **bopts), 20,
-                                      warmup=3),
-              plain_ms=cuda_time_ms(lambda: blend_backward_plain(
-                  *bargs, **bopts), 2))
-    b2["bound_ms"], b2["bound_by"], b2_parts = bound(b2_bytes, b2_ops)
-    log(f"  post frame: {feats.shape[0]} rows, {n_entries} entries of "
-        f"max_dup {max_dup}; B1 reads {b1_read} entries naming {b1_rows} "
-        f"rows ({b1_bytes} bytes), B2 walks {b2_walk} naming {b2_rows} "
-        f"({b2_bytes} bytes); {evaluated} evaluated, {applied} applied and "
-        f"{needed} B2-needed (entry, pixel) pairs")
-    for name, k, parts in (("blend_forward", b1, b1_parts),
-                            ("blend_backward", b2, b2_parts)):
-        log(f"  {name} at the post frame: launch {k['ms']:.4f} ms, wrapper "
-            f"{k['wrapper_ms']:.4f} ms, plain version {k['plain_ms']:.2f} ms, "
-            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}; {parts}) "
-            f"[{smi}]")
-    del got, bargs, fargs
+    b1, b2, b1_err, b2_err = frame_kernels(forward, dev, width, height,
+                                           "post frame", smi)
 
     # 4 more steps with the occlusion cull: the state exported to a .dhier
     # and post-optimized again, as a resumed run would
@@ -1150,6 +1205,384 @@ def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
         f"{bool(occ_out.truncated)}")
     return dict(b1=post_launches[0] + occ_launches[0],
                 b2=post_launches[1] + occ_launches[1],
+                b1_frame=b1, b2_frame=b2, b1_err=b1_err, b2_err=b2_err,
+                max_dup=max_dup)
+
+
+def write_orbit_colmap(sparse, width, height, points, n=POST_VIEWS):
+    """The orbit as a COLMAP model in `sparse`, written by the port's
+    writers: one PINHOLE camera of fov 1.2 x 0.8, image i's world-to-camera
+    rotation the transpose of the orbit's camera-to-world R and its
+    translation the ring point, `points` as points3D."""
+    from hlod_gaussians_torch.data import colmap as cm
+    os.makedirs(sparse)
+    fx = width / (2.0 * np.tan(ORBIT_FOV[0] / 2))
+    fy = height / (2.0 * np.tan(ORBIT_FOV[1] / 2))
+    cams = {1: cm.ColmapCamera(1, "PINHOLE", width, height,
+                               np.array([fx, fy, width / 2, height / 2]))}
+    images = {
+        i + 1: cm.ColmapImage(
+            i + 1, cm.rotmat2qvec(R.T.astype(np.float64)),
+            t.astype(np.float64), 1, f"view_{i:03d}.png", np.zeros((0, 2)),
+            np.zeros((0,), np.int64))
+        for i, (R, t) in enumerate(orbit_poses(n))}
+    cm.write_cameras_bin(os.path.join(sparse, "cameras.bin"), cams)
+    cm.write_images_bin(os.path.join(sparse, "images.bin"), images)
+    cm.write_points3d_bin(os.path.join(sparse, "points3D.bin"), cm.ColmapPoints(
+        points.astype(np.float32), np.full((len(points), 3), 128, np.uint8),
+        np.zeros(len(points), np.float32)))
+
+
+def loaded_orbit_views(width, height, dev, points):
+    """The orbit written as a COLMAP model and read back through
+    data.scene.load_colmap_scene; each view's camera is built from its
+    CameraInfo as load_view builds it (the model names no image files, so
+    nothing is read from disk). Returns the views and the largest
+    difference of their world_view, full_proj and campos from
+    make_camera's."""
+    import tempfile
+
+    import torch
+    from hlod_gaussians_torch.data import scene
+    from hlod_gaussians_torch.utils.camera import make_camera
+    with tempfile.TemporaryDirectory() as root:
+        write_orbit_colmap(os.path.join(root, "sparse", "0"), width, height,
+                           points)
+        info = scene.load_colmap_scene(root)
+    if len(info.train_cameras) != POST_VIEWS or info.test_cameras:
+        raise AssertionError("the orbit's COLMAP model did not load")
+    views = [make_camera(c.R, c.T, c.fovx, c.fovy, c.width, c.height,
+                         primx=c.primx, primy=c.primy, device=dev)
+             for c in info.train_cameras]
+    ref = post_bench_cameras(width, height, dev)
+    diff = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+               for a, b in zip(views, ref)
+               for f in ("world_view", "full_proj", "campos"))
+    del ref
+    torch.cuda.synchronize()
+    return views, diff
+
+
+def small_offload_check(dev):
+    """The out-of-core trainer on tests/test_offload.py's toy scene (48
+    points, budget 64, overlapping working sets) on the card: with the next
+    view prefetched it gives the unpipelined run bit for bit, and its
+    flushed store is the sequential packed step's to that test's tolerance
+    (rtol 2e-5; atol 2e-6 parameters, 1e-7 moments)."""
+    import torch
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train import offload
+    from hlod_gaussians_torch.utils.camera import make_camera
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(48, 3)).astype(np.float32) * 0.5
+    pts[:, 2] += 4.0
+    state = gm.create_from_points(pts, rng.random((48, 3)).astype(np.float32),
+                                  capacity=256, sh_degree=1,
+                                  opacity_init=0.7, device=dev)
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.9, 48, 48, device=dev)
+    cam_args = (cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+                cam.tan_fovy, torch.full((3, 48, 48), 0.35, device=dev),
+                torch.zeros(3, device=dev))
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=4096)
+    kw = dict(width=48, height=48, k_max=128, scene_extent=2.0)
+    sets = [np.arange(0, 32), np.arange(16, 40), np.arange(8, 36),
+            np.arange(0, 24)]
+    runs = []
+    for prefetch in (False, True):
+        tr = offload.DeviceResidentTrainer(
+            offload.PackedStore.from_state(state), budget=64, cfg=cfg,
+            device=dev, **kw)
+        fetched = []
+        for i, rows in enumerate(sets):
+            nxt = sets[i + 1] if prefetch and i + 1 < len(sets) else None
+            tr.step(rows, *cam_args, prefetch_rows=nxt)
+            fetched.append(tr.last_fetch)
+        tr.flush()
+        runs.append((tr.store.data, fetched))
+    seq = offload.PackedStore.from_state(state)
+    dispatch, writeback = offload.make_packed_offloaded_step(
+        cfg=cfg, sh_degree=1, **kw)
+    for rows in sets:
+        writeback(seq, dispatch(seq, rows.astype(np.int32), *cam_args))
+    (plain, f_plain), (pre, f_pre) = runs
+    bitwise = torch.equal(plain.view(torch.int32), pre.view(torch.int32))
+    p, m, _ = offload.unpack_rows(plain, 1)
+    sp, sm, _ = offload.unpack_rows(seq.data, 1)
+    errs = {k: float(((p[k] - sp[k]).abs()
+                      - 2e-5 * sp[k].abs()).max())
+            for k in ("xyz", "opacity_logit", "f_dc")}
+    m_err = float(((m["xyz"] - sm["xyz"]).abs()
+                   - 2e-5 * sm["xyz"].abs()).max())
+    log(f"  small scene (budget 64): fetched {f_plain} without prefetch, "
+        f"{f_pre} with; prefetch bitwise equal {bitwise}; against the "
+        f"sequential packed step |d| - 2e-5 |ref| at most "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f", m xyz {m_err:.2e}")
+    if (not bitwise or f_plain != f_pre or f_plain != [32, 8, 8, 8]
+            or max(errs.values()) > 2e-6 or m_err > 1e-7):
+        raise AssertionError("the small out-of-core check failed")
+
+
+def offload_phase(dev, width, height, smi, max_dup, n_leaves=POST_LEAVES,
+                  store_rows=OFFLOAD_STORE_ROWS):
+    """Phase 13: out-of-core post-optimization at the JAX package's
+    operating point (scripts/offload_bench3.py); returns the B1 and B2
+    launches of the path, both kernels' numbers at one offload frame and
+    their largest errors."""
+    import resource
+
+    import torch
+    from hlod_gaussians_torch.config import PostConfig, RasterizerConfig
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.train import offload, post
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    full = n_leaves == POST_LEAVES
+    pcfg = PostConfig()
+    extent = 25.0
+    bg = torch.zeros(3, device=dev)
+    gt = torch.full((3, height, width), 0.35, device=dev)
+    log(f"[13] out-of-core post-optimization: the {n_leaves}-leaf post "
+        f"bench tree in a {store_rows}-row pinned host store, the "
+        f"{POST_VIEWS}-view orbit through a COLMAP model, "
+        f"DeviceResidentTrainer and post_optimize_offloaded")
+    small_offload_check(dev)
+
+    # the tree, its forest and the packed rows
+    d, build_s = post_bench_dhier(dev, n_leaves)
+    m = d.nodes.shape[0]
+    state = post.create_from_dhier(d, m, skybox_num=0, scene_radius=extent,
+                                   n_exposures=1, device=dev)
+    t0 = time.perf_counter()
+    forest = post.rebuild_spt(state, post=pcfg)
+    rebuild_s = time.perf_counter() - t0
+    packed = offload.pack_store(state)
+    del state
+    points = d.pos[d.nodes[:, 2] == 0][::4096]
+    del d
+    torch.cuda.empty_cache()
+    log(f"  {m} nodes (built in {build_s:.2f} s), {forest.n_spts} SPTs "
+        f"(rebuild_spt {rebuild_s:.2f} s); packed rows {tuple(packed.shape)}"
+        f", pinned {packed.is_pinned()}")
+    if full and forest.n_spts != OFFLOAD_SPTS:
+        raise AssertionError(f"{forest.n_spts} SPTs, not {OFFLOAD_SPTS}")
+
+    # the store: every page touched, rows past the tree copies of its rows
+    with open("/proc/meminfo") as f:
+        mem_total = next(line for line in f if line.startswith("MemTotal"))
+    d_row = packed.shape[1]
+    t0 = time.perf_counter()
+    data = offload.host_empty((store_rows, d_row), dev)
+    pin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for off in range(0, store_rows, m):
+        k = min(m, store_rows - off)
+        data[off:off + k] = packed[:k]
+    fill_s = time.perf_counter() - t0
+    store = offload.PackedStore(data, sh_degree=1)
+    log(f"  store {store_rows} x {d_row} float32 = "
+        f"{store_rows * d_row * 4 / 1e9:.2f} GB, pinned {data.is_pinned()}: "
+        f"allocated in {pin_s:.2f} s, filled in {fill_s:.2f} s; host "
+        f"{' '.join(mem_total.split()[1:])} MemTotal")
+
+    # the orbit through the loaders, and its cut sequence
+    views, cam_diff = loaded_orbit_views(width, height, dev, points)
+    log(f"  {len(views)} views read back through load_colmap_scene: "
+        f"world_view, full_proj and campos within {cam_diff:.2e} of "
+        f"make_camera's")
+    if cam_diff > 1e-5:
+        raise AssertionError("the loaded orbit differs from make_camera's")
+    cutter = offload.CachedCutter(forest, m, pcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = [cutter.cut(v.campos, v.full_proj, 1.0).gaussian_mask
+             for v in views]
+    ws = [int(mk.sum()) for mk in masks]
+    cut_s = time.perf_counter() - t0
+    budget = int(max(ws) * 1.05) // 256 * 256 + 256
+    row_sets = []
+    for mk in masks:
+        idx, valid = offload.cut_to_indices(mk, budget)
+        row_sets.append(idx[valid].cpu().numpy())
+    del masks
+    ws_stats = (min(ws), max(ws), int(np.mean(ws)))
+    log(f"  CachedCutter at multiplier 1.0: working sets min / max / mean "
+        f"{ws_stats[0]} / {ws_stats[1]} / {ws_stats[2]} ({cut_s:.2f} s for "
+        f"{len(views)} cuts); budget {budget}")
+    if (any(len(r) != w or w > budget for r, w in zip(row_sets, ws))
+            or (full and (ws_stats != OFFLOAD_WS
+                          or budget != OFFLOAD_BUDGET))):
+        raise AssertionError(f"working sets {ws_stats}, budget {budget}")
+
+    # the trainer as the bench drives it
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=max_dup, tight_binning=True)
+    torch.cuda.reset_peak_memory_stats()
+    tr = offload.DeviceResidentTrainer(
+        store, budget, cfg=cfg, width=width, height=height, k_max=512,
+        scene_extent=extent, device=dev)
+    host_ms = {"prepare": [], "apply": []}
+
+    def timed(name, fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            host_ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    tr.prepare = timed("prepare", tr.prepare)
+    tr.apply = timed("apply", tr.apply)
+
+    def step(i, prefetch=None):
+        v = views[i % POST_VIEWS]
+        before = (kernel.launches, kernel_b2.launches)
+        n_host = len(host_ms["prepare"])
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        loss, _ = tr.step(
+            row_sets[i % POST_VIEWS], v.world_view, v.full_proj, v.campos,
+            v.tan_fovx, v.tan_fovy, gt, bg,
+            prefetch_rows=(None if prefetch is None
+                           else row_sets[prefetch % POST_VIEWS]))
+        dispatch = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        delta = (kernel.launches - before[0], kernel_b2.launches - before[1])
+        loss = float(loss)
+        if (delta != (1, 1) or not np.isfinite(loss)
+                or bool(tr.last_truncated)):
+            raise AssertionError(f"offload step {i}: (B1, B2) launches "
+                                 f"{delta}, loss {loss}, truncated "
+                                 f"{bool(tr.last_truncated)}")
+        return dict(ms=a.elapsed_time(b), wall=wall, dispatch=dispatch,
+                    fetch=tr.last_fetch, evict=tr.last_evict, loss=loss,
+                    prepare=sum(host_ms["prepare"][n_host:]))
+
+    torch.cuda.synchronize()
+    kernel.launches = kernel_b2.launches = 0
+    first = step(0)
+    resident = [step(0) for _ in range(OFFLOAD_RESIDENT)]
+    # the same, with view 0's rows "prefetched": prepare's bookkeeping
+    # overlaps the card as in the orbit laps
+    resident_pf = [step(0, 0) for _ in range(OFFLOAD_RESIDENT)]
+    lap1 = [step(i, i + 1) for i in range(POST_VIEWS)]
+    steady = [step(i, i + 1)
+              for i in range(POST_VIEWS, OFFLOAD_LAPS * POST_VIEWS)]
+    n_steady = len(steady)
+    apply_steady = host_ms["apply"][-n_steady:]
+    tr.flush()
+    trainer_launches = (kernel.launches, kernel_b2.launches)
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q))
+
+    res_ms = statistics.median(r["ms"] for r in resident)
+    res_wall = statistics.median(r["wall"] for r in resident)
+    pf_ms = statistics.median(r["ms"] for r in resident_pf)
+    ms = [s["ms"] for s in steady]
+    wall = [s["wall"] for s in steady]
+    fetch = np.array([s["fetch"] for s in steady])
+    evict = np.array([s["evict"] for s in steady])
+    churn = (int(np.percentile(fetch, 50)), int(np.percentile(fetch, 90)),
+             int(fetch.mean()))
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    dev_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  first step (full fetch of {first['fetch']} rows): "
+        f"{first['wall']:.1f} ms wall, prepare {first['prepare']:.1f} ms")
+    log(f"  resident (view 0, {OFFLOAD_RESIDENT} steps): median "
+        f"{res_ms:.3f} ms on the card (CUDA events), {res_wall:.3f} ms wall, "
+        f"prepare p50 {pct([r['prepare'] for r in resident], 50):.3f} ms; "
+        f"with view 0 prefetched {pf_ms:.3f} ms, "
+        f"{statistics.median(r['wall'] for r in resident_pf):.3f} ms wall")
+    log(f"  lap 1 (cache filling, prefetch): p50 "
+        f"{pct([s['ms'] for s in lap1], 50):.3f} ms on the card, "
+        f"{pct([s['wall'] for s in lap1], 50):.3f} ms wall")
+    log(f"  laps 2-3 ({n_steady} steps, prefetch): p50 / p90 / mean "
+        f"{pct(ms, 50):.3f} / {pct(ms, 90):.3f} / {np.mean(ms):.3f} ms on "
+        f"the card, {pct(wall, 50):.3f} / {pct(wall, 90):.3f} / "
+        f"{np.mean(wall):.3f} ms wall; vs_resident {pct(ms, 50) / res_ms:.3f}"
+        f" (card) {pct(wall, 50) / res_wall:.3f} (wall), against the "
+        f"prefetched resident step {pct(ms, 50) / pf_ms:.3f}; step() returns "
+        f"after {pct([s['dispatch'] for s in steady], 50):.3f} ms (p50) "
+        f"[{smi}]")
+    log(f"  host per steady step: prepare p50 / max "
+        f"{pct([s['prepare'] for s in steady], 50):.3f} / "
+        f"{max(s['prepare'] for s in steady):.3f} ms, apply p50 / max "
+        f"{pct(apply_steady, 50):.3f} / {max(apply_steady):.3f} ms")
+    log(f"  fetched rows a steady step p50 / p90 / mean {churn[0]} / "
+        f"{churn[1]} / {churn[2]} (max {int(fetch.max())}), evicted p50 / "
+        f"mean {int(np.percentile(evict, 50))} / {int(evict.mean())}; peak "
+        f"host RSS {rss_gb:.2f} GB, peak device memory {dev_gb:.2f} GB; "
+        f"losses {[round(s['loss'], 5) for s in steady[::20]]}")
+    if full and churn != OFFLOAD_CHURN:
+        raise AssertionError(f"churn {churn}, not {OFFLOAD_CHURN}")
+
+    # (a) rows no working set named, the ballast included, are unchanged
+    t0 = time.perf_counter()
+    named = np.zeros(m, bool)
+    for r in row_sets:
+        named[r] = True
+    as_int = lambda t: t.view(torch.int32)
+    unnamed = torch.from_numpy(np.where(~named)[0])
+    same = torch.equal(as_int(data.index_select(0, unnamed)),
+                       as_int(packed.index_select(0, unnamed)))
+    for off in range(m, store_rows, m):
+        k = min(m, store_rows - off)
+        same = same and torch.equal(as_int(data[off:off + k]),
+                                    as_int(packed[:k]))
+    trained = torch.from_numpy(row_sets[0][:1024].astype(np.int64))
+    moved = not torch.equal(data.index_select(0, trained),
+                            packed.index_select(0, trained))
+    log(f"  after flush: the {int((~named).sum())} rows no working set "
+        f"named and the {store_rows - m} ballast rows bitwise unchanged "
+        f"{same}, trained rows changed {moved} ({time.perf_counter() - t0:.1f}"
+        f" s to check)")
+    if not (same and moved):
+        raise AssertionError("the store changed outside the working sets")
+
+    # (c) B1 and B2 at an offload frame: the last view over the slot buffer
+    v = views[(OFFLOAD_LAPS * POST_VIEWS - 1) % POST_VIEWS]
+
+    def frame():
+        rows, m_rows, v_rows = offload.unpack_rows(tr.buf, 1)
+        offload._compute_phase(
+            rows, m_rows, v_rows, tr.store.step, tr.valid, v.world_view,
+            v.full_proj, v.campos, v.tan_fovx, v.tan_fovy, gt, bg, **tr._kw)
+
+    b1, b2, b1_err, b2_err = frame_kernels(frame, dev, width, height,
+                                           "offload frame", smi)
+    del tr, packed
+    torch.cuda.empty_cache()
+
+    # the public entry point over the loaded views
+    views = [dataclasses.replace(v, image=gt) for v in views]
+    kernel.launches = kernel_b2.launches = 0
+    t0 = time.perf_counter()
+    tr, losses = offload.post_optimize_offloaded(
+        store, forest, views, budget=budget, post=pcfg, cfg=cfg,
+        width=width, height=height, k_max=512, scene_extent=extent,
+        n_iters=OFFLOAD_LOOP_ITERS, device=dev)
+    losses = [float(x) for x in losses]
+    tr.flush()
+    loop_s = time.perf_counter() - t0
+    loop_launches = (kernel.launches, kernel_b2.launches)
+    log(f"  post_optimize_offloaded: {OFFLOAD_LOOP_ITERS} iterations in "
+        f"{loop_s:.2f} s (cuts and the final flush included), losses "
+        f"{[round(x, 5) for x in losses]}, last fetch {tr.last_fetch}; "
+        f"(B1, B2) launches {loop_launches}")
+    if (not np.isfinite(losses).all()
+            or loop_launches != (OFFLOAD_LOOP_ITERS,) * 2):
+        raise AssertionError("post_optimize_offloaded failed")
+    del tr, store, data, forest
+    torch.cuda.empty_cache()
+    return dict(b1=trainer_launches[0] + loop_launches[0],
+                b2=trainer_launches[1] + loop_launches[1],
                 b1_frame=b1, b2_frame=b2, b1_err=b1_err, b2_err=b2_err)
 
 
@@ -1787,9 +2220,14 @@ def main():
     postr = post_phase(dev, width, height, smi)
     max_err = max(max_err, postr["b1_err"])
     b2_err = max(b2_err, postr["b2_err"])
+    torch.cuda.empty_cache()
 
-    # ---- 13. kernel table -------------------------------------------------
-    log(f"[13] done in {time.perf_counter() - t_start:.1f} s")
+    offr = offload_phase(dev, width, height, smi, postr["max_dup"])
+    max_err = max(max_err, offr["b1_err"])
+    b2_err = max(b2_err, offr["b2_err"])
+
+    # ---- 14. kernel table -------------------------------------------------
+    log(f"[14] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
@@ -1797,10 +2235,10 @@ def main():
         "source": "hlod_gaussians_torch/csrc/blend_forward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
         "launches": (flat_launches + lod_launches + train_launches
-                     + sum(lodr["b1"].values()) + postr["b1"]),
+                     + sum(lodr["b1"].values()) + postr["b1"] + offr["b1"]),
         "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
                                   "train": train_launches}, **lodr["b1"],
-                                 post=postr["b1"]),
+                                 post=postr["b1"], offload=offr["b1"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1809,16 +2247,17 @@ def main():
         "library_ms": None,
         "lod_stream_tau0": lodr["tau0"],
         "post_frame": postr["b1_frame"],
+        "offload_frame": offr["b1_frame"],
     }, {
         "name": "blend_backward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_backward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
         "launches": (flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values())
-                     + postr["b2"]),
+                     + postr["b2"] + offr["b2"]),
         "launches_by_path": dict({"flat": flat_b2, "lod": lod_b2,
                                   "train": train_b2}, **lodr["b2"],
-                                 post=postr["b2"]),
+                                 post=postr["b2"], offload=offr["b2"]),
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
@@ -1826,6 +2265,7 @@ def main():
         "bound_by": b2_bound_by,
         "library_ms": None,
         "post_frame": postr["b2_frame"],
+        "offload_frame": offr["b2_frame"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

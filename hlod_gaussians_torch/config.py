@@ -1,15 +1,51 @@
-"""Training and rasterizer configuration (port of
-hlod_gaussians_tpu/config.py:50-156).
+"""Scene, training and rasterizer configuration (port of
+hlod_gaussians_tpu/config.py:16-191).
 
-`OptimizationConfig`, `RasterizerConfig` and `PostConfig` are ported so
-far. The TPU-only
-`tpb` field (tiles per Pallas grid program) has no counterpart: the CUDA
-kernels run one block per tile.
+`ModelConfig`, `PipelineConfig`, `OptimizationConfig`, `RasterizerConfig`,
+`PostConfig` and the JSON pair `save_config` / `load_config` are ported;
+`MeshConfig` (multi-chip layout) is not yet, and `load_config` skips its
+entry in a file the JAX package wrote. The TPU-only `tpb` field (tiles per
+Pallas grid program) has no counterpart: the CUDA kernels run one block per
+tile.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Model / scene loading parameters (reference arguments/__init__.py:114-147)."""
+
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    alpha_masks: str = ""
+    depths: str = ""
+    resolution: int = -1
+    white_background: bool = False
+    train_test_exp: bool = False
+    eval: bool = False
+    skip_scale_big_gauss: bool = False
+    hierarchy: str = ""
+    pretrained: str = ""
+    skybox_num: int = 0
+    scaffold_file: str = ""
+    skybox_locked: bool = False
+    cap_max: int = -1  # MCMC capacity target (-1 = keep PostConfig.max_cap)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Render pipeline switches (reference arguments/__init__.py:149-154)."""
+
+    antialiasing: bool = False
+    debug: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +142,35 @@ class PostConfig:
     max_sh_degree: int = 1
     dead_opacity: float = 0.005     # relocate_gs threshold (gaussian_model.py:1594)
     grow_fraction: float = 0.05     # add_new_gs growth per round (gaussian_model.py:1703)
+
+
+def save_config(path: str, **configs) -> None:
+    """Write config dataclasses to JSON as {"ClassName": {field: value}}
+    (the reference's `cfg_args` dump, train_single.py:194-206); the JAX
+    package writes and reads the same layout."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    out = {type(c).__name__: dataclasses.asdict(c) for c in configs.values()}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=2, default=float)
+
+
+def load_config(path: str, overrides: Optional[dict] = None) -> dict:
+    """Read saved configs, applying {"ClassName": {field: value}} overrides
+    on top (the reference's get_combined_args merge, arguments/__init__.py
+    :187-207) -> {class name: instance}. Classes this package does not
+    define and fields a class does not have are skipped."""
+    classes = {c.__name__: c for c in (ModelConfig, PipelineConfig,
+                                       OptimizationConfig, RasterizerConfig,
+                                       PostConfig)}
+    with open(path) as f:
+        raw = json.load(f)
+    out = {}
+    for name, kv in raw.items():
+        cls = classes.get(name)
+        if cls is None:
+            continue
+        if overrides and name in overrides:
+            kv = {**kv, **overrides[name]}
+        fields = {f.name for f in dataclasses.fields(cls)}
+        out[name] = cls(**{k: v for k, v in kv.items() if k in fields})
+    return out

@@ -4,9 +4,11 @@
 (`np.asarray` of each field) and returns this package's state, so both
 packages render the same scene. `train_state_from_numpy` does the same for
 a JAX `FlatTrainState`, so both packages take the same training step;
-`post_state_from_numpy` for a JAX `PostTrainState`, and `forest_from_numpy`
-turns a JAX `SPTForest`'s arrays into this package's forest. Nothing here
-imports JAX: the caller does the `np.asarray`.
+`post_state_from_numpy` for a JAX `PostTrainState`; `forest_from_numpy`
+turns a JAX `SPTForest`'s arrays into this package's forest, and
+`packed_store_from_numpy` a JAX `PackedStore`'s matrix into this package's
+out-of-core store. Nothing here imports JAX: the caller does the
+`np.asarray`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from hlod_gaussians_torch import optim
 from hlod_gaussians_torch.hierarchy.spt import SPTForest
 from hlod_gaussians_torch.models.gaussians import GaussianState
 from hlod_gaussians_torch.train.flat import FlatTrainState
+from hlod_gaussians_torch.train.offload import PackedStore, host_empty
 from hlod_gaussians_torch.train.post import PostTrainState
 
 _TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(GaussianState)
@@ -110,3 +113,17 @@ def forest_from_numpy(arrays: Mapping[str, np.ndarray],
         k: torch.tensor(np.asarray(arrays[k], dtype=np.int32 if k in ints
                                    else np.float32), device=device)
         for k in SPTForest._fields})
+
+
+def packed_store_from_numpy(packed: np.ndarray, sh_degree: int,
+                            step: int = 0,
+                            device=torch.device("cuda")) -> PackedStore:
+    """A JAX PackedStore's [cap, D] matrix and step -> this package's
+    PackedStore, its matrix copied into the host memory that serves
+    `device` (pinned for a CUDA device)."""
+    packed = np.asarray(packed, dtype=np.float32)
+    if packed.ndim != 2:
+        raise ValueError(f"packed store must be [cap, D], got {packed.shape}")
+    data = host_empty(packed.shape, device)
+    data.numpy()[...] = packed
+    return PackedStore(data, sh_degree, step=int(step))

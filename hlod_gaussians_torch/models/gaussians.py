@@ -217,3 +217,117 @@ def create_from_points(
     state.opacity_logit[:total] = op
     state.alive[:total] = True
     return state
+
+
+def create_from_gaussian_ply(ply, capacity: int, n_exposures: int = 1,
+                             device=torch.device("cuda")) -> GaussianState:
+    """Initialize from a saved 3DGS point cloud (data.ply.GaussianPly; the
+    reference's --pretrained path, scene/__init__.py:82-83 create_from_pt):
+    raw parameters are adopted verbatim, quaternions normalized, no kNN
+    re-init."""
+    n = ply.xyz.shape[0]
+    if n > capacity:
+        raise ValueError(f"capacity {capacity} < ply points {n}")
+    sh_degree = {0: 0, 3: 1, 8: 2, 15: 3}[ply.f_rest.shape[1]]
+    state = empty_state(capacity, sh_degree, n_exposures, n_skybox=0,
+                        device=device)
+    q = ply.quat / np.maximum(
+        np.linalg.norm(ply.quat, axis=-1, keepdims=True), 1e-12)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    state.xyz[:n] = dev(ply.xyz)
+    state.f_dc[:n] = dev(ply.f_dc)
+    state.f_rest[:n] = dev(ply.f_rest)
+    state.log_scale[:n] = dev(ply.log_scale)
+    state.quat[:n] = dev(q)
+    state.opacity_logit[:n] = dev(ply.opacity.reshape(n, 1))
+    state.alive[:n] = True
+    return state
+
+
+def select_scaffold_ring(scaffold_xyz: np.ndarray, center: np.ndarray,
+                         extent0: float, n_skybox: int) -> np.ndarray:
+    """Scaffold rows a chunk conditions on (reference
+    scene/gaussian_model.py:890-895): points whose Chebyshev x/y distance to
+    the chunk center lies in (0.5*extent, 1.5*extent) — the ring AROUND the
+    chunk, the interior being covered by the chunk's own points — plus every
+    skybox row. extent0 is the chunk's extent[0] (the reference uses the
+    first component for both axes). Numpy in, numpy bool mask out."""
+    d = np.abs(np.asarray(scaffold_xyz)[:, :2] - np.asarray(center)[:2])
+    m = np.maximum(d[:, 0], d[:, 1])
+    sel = (m > 0.5 * extent0) & (m < 1.5 * extent0)
+    sel[:n_skybox] = True
+    return sel
+
+
+def create_with_scaffold(
+    scaffold: GaussianState,
+    chunk_center: np.ndarray,
+    chunk_extent0: float,
+    points: np.ndarray,
+    colors: np.ndarray,
+    capacity: int,
+    sh_degree: int = 3,
+    n_exposures: int = 1,
+    opacity_init: float = 0.01,
+    max_scaffold_rows: Optional[int] = None,
+    device=torch.device("cuda"),
+) -> GaussianState:
+    """Chunk state conditioned on the trained coarse scaffold (reference
+    create_from_pcd with scaffold_file, scene/gaussian_model.py:866-919):
+
+    rows = [scaffold skybox | scaffold ring (trained params) | chunk
+    points]. Scaffold rows keep their trained raw parameters, their SH rest
+    zero-padded to the chunk's degree or truncated to it; chunk points get
+    the kNN scale / SH-DC init of create_from_points. With
+    ``max_scaffold_rows`` a ring larger than that keeps every skybox row
+    and an even subsample of the rest (the JAX package's deviation for
+    scaffolds as dense as the chunks)."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    sel = select_scaffold_ring(host(scaffold.xyz), chunk_center,
+                               chunk_extent0, scaffold.n_skybox)
+    sel &= host(scaffold.alive)
+    rows = np.where(sel)[0]
+    if max_scaffold_rows is not None and len(rows) > max_scaffold_rows:
+        sky = rows[rows < scaffold.n_skybox]
+        rest = rows[rows >= scaffold.n_skybox]
+        keep = max(0, max_scaffold_rows - len(sky))
+        if keep < len(rest):
+            rest = rest[np.linspace(0, len(rest) - 1, keep).astype(np.int64)]
+        rows = np.concatenate([sky, rest])
+    n_scaf = len(rows)
+    n = points.shape[0]
+    if n_scaf + n > capacity:
+        raise ValueError(f"capacity {capacity} < scaffold {n_scaf} + points {n}")
+
+    n_sky = int(np.sum(rows < scaffold.n_skybox))
+    # fills the freshly allocated state in place
+    state = empty_state(capacity, sh_degree, n_exposures, n_skybox=n_sky,
+                        device=device)
+    k_rest = sh_ops.NUM_COEFFS[sh_degree] - 1
+    src_rest = host(scaffold.f_rest)[rows]
+    kk = min(k_rest, src_rest.shape[1])
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    pos = dev(points)
+    dist2 = torch.clamp_min(knn_ops.knn_mean_sq_dist(pos, k=3), 1e-7)
+    total = n_scaf + n
+    state.xyz[:n_scaf] = dev(host(scaffold.xyz)[rows])
+    state.xyz[n_scaf:total] = pos
+    state.f_dc[:n_scaf] = dev(host(scaffold.f_dc)[rows])
+    state.f_dc[n_scaf:total] = sh_ops.rgb_to_sh(dev(colors))[:, None, :]
+    state.f_rest[:n_scaf, :kk] = dev(src_rest[:, :kk])
+    state.log_scale[:n_scaf] = dev(host(scaffold.log_scale)[rows])
+    state.log_scale[n_scaf:total] = torch.log(torch.sqrt(dist2))[:, None]
+    state.quat[:n_scaf] = dev(host(scaffold.quat)[rows])
+    state.opacity_logit[:n_scaf] = dev(host(scaffold.opacity_logit)[rows])
+    state.opacity_logit[n_scaf:total] = float(inverse_sigmoid(
+        torch.tensor(opacity_init, dtype=torch.float32)))
+    state.alive[:total] = True
+    return dataclasses.replace(state, n_scaffold=n_scaf - n_sky)

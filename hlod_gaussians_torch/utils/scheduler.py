@@ -1,14 +1,17 @@
 """Camera schedulers: shuffled epochs and cache-coherent random walks (port
-of hlod_gaussians_tpu/utils/scheduler.py:17-68, numpy only).
+of hlod_gaussians_tpu/utils/scheduler.py, numpy and stdlib sqlite3 only).
 
 The fork trains the out-of-core model with a Metropolis–Hastings random walk
 over a camera graph so consecutive views share most of their SPT working
 set (reference consistency_graph.py:18-48,
-construct_distance_graph.py:24-92); here over a kNN distance graph of the
-camera centres. The COLMAP co-visibility graph loader is not ported yet.
+construct_distance_graph.py:24-92): over a kNN distance graph of the camera
+centres, or over the co-visibility graph `load_covisibility_graph` reads
+from a COLMAP database.
 """
 
 from __future__ import annotations
+
+import sqlite3
 
 from typing import Optional
 
@@ -66,3 +69,45 @@ def view_schedule(centers: Optional[np.ndarray], n_views: int, n_steps: int,
     if walk and centers is not None and n_views > 1:
         return metropolis_hastings_walk(knn_camera_graph(centers), n_steps, rng)
     return shuffled_epochs(n_views, n_steps, rng)
+
+
+def pair_id_to_image_ids(pair_id: int):
+    """COLMAP pair_id decode (reference consistency_graph.py:8-11)."""
+    image_id2 = pair_id % 2147483647
+    image_id1 = (pair_id - image_id2) // 2147483647
+    return int(image_id1), int(image_id2)
+
+
+def load_covisibility_graph(database_path: str, min_matches: int = 1):
+    """Camera co-visibility graph from a COLMAP database's
+    two_view_geometries table (reference load_consistency_graph,
+    consistency_graph.py:66-86) -> (sorted image ids, neighbors [N, k]
+    index array padded with each row's first neighbor, weights [N, k] the
+    verified match counts), ready for metropolis_hastings_walk."""
+    conn = sqlite3.connect(database_path)
+    try:
+        pairs = conn.execute(
+            "SELECT pair_id, rows FROM two_view_geometries;").fetchall()
+    finally:
+        conn.close()
+
+    adj = {}
+    for pair_id, matches in pairs:
+        if matches is None or matches < min_matches:
+            continue
+        a, b = pair_id_to_image_ids(pair_id)
+        adj.setdefault(a, {})[b] = matches
+        adj.setdefault(b, {})[a] = matches
+
+    ids = sorted(adj)
+    index = {im: i for i, im in enumerate(ids)}
+    k = max(max((len(v) for v in adj.values()), default=1), 1)
+    neighbors = np.zeros((len(ids), k), np.int64)
+    weights = np.zeros((len(ids), k), np.float64)
+    for im, nbrs in adj.items():
+        i = index[im]
+        for j, (nb, w) in enumerate(sorted(nbrs.items())):
+            neighbors[i, j] = index[nb]
+            weights[i, j] = w
+        neighbors[i, len(nbrs):] = neighbors[i, 0]
+    return ids, neighbors, weights

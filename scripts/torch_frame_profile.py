@@ -2,7 +2,8 @@
 """Device-time profile of the PyTorch port's serving frames and training
 step on one GPU.
 
-    python3 scripts/torch_frame_profile.py [--frames 8] [--path lod_stream|post]
+    python3 scripts/torch_frame_profile.py [--frames 8]
+        [--path lod_stream|post|offload]
 
 By default serves the flat 1080p bench request (render_arrays, 100k
 Gaussians, SH 3, 32x32 tiles, tight binning) and the tau-3 LOD request of
@@ -15,7 +16,12 @@ one frame of each (cut, interpolation, projection + SH, binning, blend).
 With ``--path post`` it builds chip_smoke.py's post-optimization bench tree
 (4,194,303 nodes, SH 1), perturbs it as phase [12] does and profiles
 train.post.post_train_step over the 40-view 1080p orbit (each step's SPT
-cut included), after 3 warm-up steps. Each path runs under torch.profiler
+cut included), after 3 warm-up steps. With ``--path offload`` it packs the
+same tree (unperturbed) into a host store, cuts the orbit with
+train.offload.CachedCutter as chip_smoke.py's phase [13] does, and
+profiles DeviceResidentTrainer.step resident on view 0, then over the
+orbit with the next view prefetched (after a lap that fills the cache).
+Each path runs under torch.profiler
 and prints: the CUDA-event time per frame (or step), the host wall time,
 the device busy time (union of CUDA kernel intervals), the busy share of
 the CUDA-event window, kernel launches per frame, and the kernels with the
@@ -247,13 +253,68 @@ def post_profiles(dev, frames):
           f"{float(aux.loss):.6f}, rendered rows {int(aux.n_rendered)}")
 
 
+def offload_profiles(dev, frames, max_dup=1 << 20):
+    """DeviceResidentTrainer.step on the post bench tree's working sets:
+    resident on view 0, then the orbit with the next view prefetched."""
+    import torch
+    from chip_smoke import post_bench_cameras, post_bench_dhier
+    from hlod_gaussians_torch.config import PostConfig, RasterizerConfig
+    from hlod_gaussians_torch.train import offload, post
+
+    width, height, extent = 1920, 1080, 25.0
+    pcfg = PostConfig()
+    d, _ = post_bench_dhier(dev)
+    m = d.nodes.shape[0]
+    state = post.create_from_dhier(d, m, scene_radius=extent, device=dev)
+    forest = post.rebuild_spt(state, post=pcfg)
+    store = offload.PackedStore.from_state(state)
+    del state
+    cams = post_bench_cameras(width, height, dev)
+    cutter = offload.CachedCutter(forest, m, pcfg)
+    rows = [torch.nonzero(cutter.cut(c.campos, c.full_proj).gaussian_mask
+                          )[:, 0].int().cpu().numpy() for c in cams]
+    budget = int(max(len(r) for r in rows) * 1.05) // 256 * 256 + 256
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=max_dup, tight_binning=True)
+    tr = offload.DeviceResidentTrainer(
+        store, budget, cfg=cfg, width=width, height=height, k_max=512,
+        scene_extent=extent, device=dev)
+    gt = torch.full((3, height, width), 0.35, device=dev)
+    bg = torch.zeros(3, device=dev)
+    count = [0]
+    print(f"offload: {m} nodes, budget {budget}, working sets "
+          f"{min(map(len, rows))}-{max(map(len, rows))}", flush=True)
+
+    def step(i, prefetch):
+        c = cams[i % len(cams)]
+        return tr.step(rows[i % len(cams)], c.world_view, c.full_proj,
+                       c.campos, c.tan_fovx, c.tan_fovy, gt, bg,
+                       prefetch_rows=(rows[(i + 1) % len(cams)] if prefetch
+                                      else None))
+
+    profile("offload resident step", lambda: step(0, False), frames)
+
+    def orbit():
+        count[0] += 1
+        return step(count[0], True)
+
+    for _ in range(len(cams)):
+        orbit()
+    profile("offload orbit step (prefetch)", orbit, frames)
+    torch.cuda.synchronize()
+    print(f"offload: last fetch {tr.last_fetch}, truncated "
+          f"{bool(tr.last_truncated)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--path", choices=("serve_train", "lod_stream", "post"),
+    ap.add_argument("--path", choices=("serve_train", "lod_stream", "post",
+                                       "offload"),
                     default="serve_train",
                     help="the flat and LOD requests and the train step, "
-                    "the full-size LOD stream, or the post step")
+                    "the full-size LOD stream, the post step, or the "
+                    "out-of-core step")
     args = ap.parse_args()
 
     import torch
@@ -280,6 +341,9 @@ def main():
         return 0
     if args.path == "post":
         post_profiles(dev, args.frames)
+        return 0
+    if args.path == "offload":
+        offload_profiles(dev, args.frames)
         return 0
     width, height = 1920, 1080
     cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,

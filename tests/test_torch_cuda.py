@@ -1,7 +1,9 @@
 """The CUDA blend kernels (B1 forward, B2 backward) against their plain
 PyTorch versions on the card, and the differentiable kernel path against
-the same render on the CPU, and the post-optimization slice (SPT cuts, MCMC
-relocation and growth, one post step) on the card against the CPU. Every
+the same render on the CPU, the post-optimization slice (SPT cuts, MCMC
+relocation and growth, one post step) on the card against the CPU, and
+the out-of-core trainer (pinned host store, device-resident row cache
+with and without prefetch) on the card against the CPU. Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -446,3 +448,104 @@ def test_cuda_post_train_step_matches_cpu(cuda_device):
         assert not big.any() or float(diff[big].max()) <= 1e-6, k
         assert float(diff.max()) <= 2 * lrs[k] + 1e-6, k
     assert not got.adam.m["xyz"][:8].any()
+
+
+def _offload_scene(dev, cap=256, n=48, seed=3):
+    """tests/test_offload.py's toy scene: 48 points, SH 1, on `dev`."""
+    from hlod_gaussians_torch.models import gaussians as gm
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 0.5
+    pts[:, 2] += 4.0
+    cols = rng.random((n, 3)).astype(np.float32)
+    state = gm.create_from_points(pts, cols, capacity=cap, sh_degree=1,
+                                  opacity_init=0.7,
+                                  device=torch.device("cpu"))
+    state = dataclasses.replace(state, **{
+        k: getattr(state, k).to(dev) for k in
+        ("xyz", "f_dc", "f_rest", "log_scale", "quat", "opacity_logit",
+         "exposure", "alive", "nodes")})
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.9, 48, 48, device=dev)
+    return state, cam
+
+
+@pytest.mark.cuda
+def test_cuda_packed_store_is_pinned(cuda_device):
+    """The host stores that serve the card are page-locked and hold the
+    CPU's values; the CPU's are plain."""
+    from hlod_gaussians_torch import convert
+    from hlod_gaussians_torch.train import offload
+    gpu, _ = _offload_scene(cuda_device)
+    cpu, _ = _offload_scene(torch.device("cpu"))
+    store = offload.PackedStore.from_state(gpu)
+    ref = offload.PackedStore.from_state(cpu)
+    assert store.data.is_pinned() and not ref.data.is_pinned()
+    assert store.data.device.type == "cpu"
+    assert torch.equal(store.data, ref.data)
+    carried = convert.packed_store_from_numpy(ref.data.numpy(), 1,
+                                              device=cuda_device)
+    assert carried.data.is_pinned() and torch.equal(carried.data, ref.data)
+    host = offload.to_host_store(gpu)
+    assert all(t.is_pinned() for t in host.params.values())
+
+
+@pytest.mark.cuda
+def test_cuda_resident_trainer_matches_cpu(cuda_device):
+    """DeviceResidentTrainer on the card over tests/test_offload.py's
+    overlapping working sets, with and without prefetch: fetch and evict
+    counts and slot tables equal the CPU trainer's, one B1 and one B2
+    launch a step, prefetch bitwise equal to no prefetch, and the flushed
+    store within the post step's tolerances of the CPU's (moments scaled
+    to 3e-4, parameters to 1e-6 a step where |m| > 1e-3 max|m|, within 2 lr
+    a step elsewhere)."""
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.train import offload
+    sets = [np.arange(0, 32), np.arange(16, 40), np.arange(8, 36),
+            np.arange(0, 24)]
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=4096)
+    runs = {}
+    for dev, prefetch in ((torch.device("cpu"), False),
+                          (cuda_device, False), (cuda_device, True)):
+        state, cam = _offload_scene(dev)
+        tr = offload.DeviceResidentTrainer(
+            offload.PackedStore.from_state(state), budget=64, cfg=cfg,
+            width=48, height=48, k_max=128, scene_extent=2.0, device=dev)
+        gt = torch.full((3, 48, 48), 0.35, device=dev)
+        log = []
+        for i, rows in enumerate(sets):
+            nxt = sets[i + 1] if prefetch and i + 1 < len(sets) else None
+            before = (rasterize_cuda.blend_forward.launches,
+                      rasterize_cuda.blend_backward.launches)
+            loss, _ = tr.step(rows, cam.world_view, cam.full_proj,
+                              cam.campos, cam.tan_fovx, cam.tan_fovy, gt,
+                              torch.zeros(3, device=dev), prefetch_rows=nxt)
+            n = int(dev.type == "cuda")
+            assert (rasterize_cuda.blend_forward.launches,
+                    rasterize_cuda.blend_backward.launches) == (
+                before[0] + n, before[1] + n)
+            assert np.isfinite(float(loss)) and not bool(tr.last_truncated)
+            log.append((tr.last_fetch, tr.last_evict, tr.slot_of_row.copy(),
+                        tr.row_of_slot.copy()))
+        tr.flush()
+        runs[(dev.type, prefetch)] = (log, tr.store.data.clone())
+    ref_log, ref = runs[("cpu", False)]
+    got_log, got = runs[("cuda", False)]
+    pre_log, pre = runs[("cuda", True)]
+    assert [r[:2] for r in ref_log] == [g[:2] for g in got_log] == \
+        [p[:2] for p in pre_log]
+    for r, g in zip(ref_log, got_log):
+        assert np.array_equal(r[2], g[2]) and np.array_equal(r[3], g[3])
+    assert torch.equal(pre, got)
+    rp, rm, rv = offload.unpack_rows(ref, 1)
+    gp, gm_, gv = offload.unpack_rows(got, 1)
+    steps = len(sets)
+    for k in rp:
+        lr = max(optim.param_lrs(OptimizationConfig(), i, 2.0)[k]
+                 for i in range(steps))
+        for r, g in ((rm[k], gm_[k]), (rv[k], gv[k])):
+            assert float((g - r).abs().max()) <= GRAD_ATOL * max(
+                float(r.abs().max()), 1e-30), k
+        big = rm[k].abs() > 1e-3 * rm[k].abs().max()
+        diff = (gp[k] - rp[k]).abs()
+        assert not big.any() or float(diff[big].max()) <= 1e-6 * steps, k
+        assert float(diff.max()) <= 2 * steps * lr + 1e-6, k
