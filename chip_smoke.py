@@ -101,7 +101,21 @@ Phases (any failure raises and exits non-zero):
      against their plain versions at an offload frame with bare launch,
      wrapper and bound; then post_optimize_offloaded for 10 iterations
      over the loaded views.
-  14. the {"kernels": [...]} line, then the device line.
+  14. the pipeline at the JAX package's pipeline point
+     (scripts/tpu_pipeline_scale3.py): 9 shells of 250,000 points,
+     ground truth rendered at 512x512, 72 train and 36 ring test views;
+     pipeline.full_train.run_pipeline with coarse / chunk / post steps 60 /
+     200 / 100 and one MCMC round a chunk (PIPE): 9 chunks; one B1 and one
+     B2 launch a step, none truncated, every loss finite; the scaffold's
+     ring-test PSNR above its initial state's; every chunk's loss falling
+     on the views it trained again; the device memory in use as each chunk
+     starts not growing by a chunk state; every artifact written, anchors
+     inside their trees, the merged tree proper; a resume that touches no
+     artifact and writes a byte-equal merge; B1 and B2 against their plain
+     versions at a chunk-training frame; the tau sweep on the merged tree
+     (mean_rendered falling, PSNR at tau 0 at least at tau 15). 14b: the
+     full-train CLI in a subprocess on a small COLMAP scene.
+  15. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -178,6 +192,23 @@ OFFLOAD_WS = (1_701_479, 2_062_953, 1_864_463)
 OFFLOAD_BUDGET = 2_166_272
 OFFLOAD_CHURN = (511, 49_152, 14_105)
 OFFLOAD_SPTS = 151
+# the JAX package's pipeline operating point (scripts/tpu_pipeline_scale3.py
+# :53-137, PIPELINE_r05.json): 9 shells of 250,000 points on a 3x3 grid,
+# 512x512 views (72 train, 36 ring test, 4 orbit), coarse capacity 2^22,
+# chunk capacity 2^19, 16x16 tiles with max_dup 2^22 (2^23 for the ground
+# truth and the eval). Only the step counts are cut: coarse 600 -> 51,
+# chunk 1500 -> 51 (a loss is logged every 50 steps), post 800 -> 20 with a
+# round every 400 -> 10, one MCMC round a chunk as there. A step over 2^22
+# max_dup entries takes ~0.4 s on the card (the gradient reduction), so
+# the JAX run's 600 / 1500 / 800 would take hours
+PIPE = dict(per=250_000, ring=12, width=512, coarse_capacity=1 << 22,
+            chunk_capacity=1 << 19, max_dup=1 << 22, gt_max_dup=1 << 23,
+            coarse_iters=60, chunk_iters=200, post_iters=100, post_densify=50,
+            eval_budget=1 << 20)
+PIPE_CENTERS = np.array([[x, y, 5.0] for y in (-3.0, 0.0, 3.0)
+                         for x in (-3.0, 0.0, 3.0)], np.float32)
+PIPE_JAX = dict(nodes=4_480_899, depth=22, iters=(600, 1500, 800, 400))
+CLI_VIEWS, CLI_W, CLI_H = 8, 128, 96
 
 
 def log(*a):
@@ -742,15 +773,16 @@ def bare_b2_launch_ms(bargs, bopts, reps=20):
         *bargs, egrads, alpha_min=1.0 / 255.0, **bopts), reps, warmup=3)
 
 
-def b2_work(fargs, fwd, applied, width, height):
+def b2_work(fargs, fwd, applied, width, height, tile_w=32, tile_h=32):
     """(needed pairs, bytes, f32 ops, entries walked, feature rows) of B2 on
-    a frame of 32x32 tiles: every entry before a pixel's n_contrib decides
-    whether it was applied, and the applied pairs carry the gradient (phase
-    [2b]'s count); a tile walks its entries up to its largest n_contrib,
-    reads each one's feature row and writes its 48-byte gradient row."""
+    a frame of tile_w x tile_h tiles: every entry before a pixel's n_contrib
+    decides whether it was applied, and the applied pairs carry the gradient
+    (phase [2b]'s count); a tile walks its entries up to its largest
+    n_contrib, reads each one's feature row and writes its 48-byte gradient
+    row."""
     from hlod_gaussians_torch.ops.rasterize_xla import tile_image
     needed = int(fwd[2].sum())
-    walk = tile_image(fwd[2], width, height, 32, 32).amax(1)
+    walk = tile_image(fwd[2], width, height, tile_w, tile_h).amax(1)
     n_bytes, n, rows = frame_bytes(fargs, walk, width, height,
                                    4 + 4 + 4 * 4 + 4, entry_bytes=12 * 4)
     return (needed, n_bytes, B2_OPS_NEED * needed + B2_OPS_APPLY * applied,
@@ -766,18 +798,19 @@ def bound(n_bytes, ops):
             else "operations", f"bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms")
 
 
-def frame_kernels(run, dev, width, height, where, smi):
-    """B1 and B2 at the frame run() renders (32x32 tiles): B1 against its
-    plain version to 1e-4 with n_contrib exact, B2 to 3e-4 scaled; the bare
-    launch, the wrapper, the plain version and the bound of each -> (B1's
-    numbers, B2's numbers, B1's error, B2's error)."""
+def frame_kernels(captured, dev, width, height, where, smi):
+    """B1 and B2 at a frame, from its B1 inputs as capture_b1_inputs gives
+    them (its tiles): B1 against its plain version to 1e-4 with n_contrib
+    exact, B2 to 3e-4 scaled; the bare launch, the wrapper, the plain
+    version and the bound of each -> (B1's numbers, B2's numbers, B1's
+    error, B2's error)."""
     import torch
     from hlod_gaussians_torch.ops import rasterize_cuda
     from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
                                                         blend_forward_plain)
     kernel = rasterize_cuda.blend_forward
     kernel_b2 = rasterize_cuda.blend_backward
-    fargs, fopts = capture_b1_inputs(run)
+    fargs, fopts = captured
     fargs = tuple(a.detach() for a in fargs)
     got = kernel(*fargs, **fopts)
     torch.cuda.synchronize()
@@ -792,7 +825,8 @@ def frame_kernels(run, dev, width, height, where, smi):
     feats, sorted_gid, _, counts = fargs
     n_entries = int(counts.sum())
     evaluated, applied, _, read = work_of_frame(
-        *fargs, width, height, 32, 32, fopts["t_eps"], fopts["alpha_min"])
+        *fargs, width, height, fopts["tile_w"], fopts["tile_h"],
+        fopts["t_eps"], fopts["alpha_min"])
     b1_bytes, b1_read, b1_rows = frame_bytes(fargs, read, width, height,
                                              4 * 4 + 4 + 4)
     b1["bound_ms"], b1["bound_by"], b1_parts = bound(
@@ -801,7 +835,8 @@ def frame_kernels(run, dev, width, height, where, smi):
     b2_err, (bargs, bopts) = check_backward(
         where, fargs, dict(fopts, use_lod=False), got, gen)
     needed, b2_bytes, b2_ops, b2_walk, b2_rows = b2_work(
-        fargs, got, applied, width, height)
+        fargs, got, applied, width, height, fopts["tile_w"],
+        fopts["tile_h"])
     b2 = dict(ms=bare_b2_launch_ms(bargs, bopts),
               wrapper_ms=cuda_time_ms(lambda: kernel_b2(*bargs, **bopts), 20,
                                       warmup=3),
@@ -1163,8 +1198,8 @@ def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{smi}]")
 
     # B1 and B2 at this post frame
-    b1, b2, b1_err, b2_err = frame_kernels(forward, dev, width, height,
-                                           "post frame", smi)
+    b1, b2, b1_err, b2_err = frame_kernels(capture_b1_inputs(forward), dev,
+                                           width, height, "post frame", smi)
 
     # 4 more steps with the occlusion cull: the state exported to a .dhier
     # and post-optimized again, as a resumed run would
@@ -1555,8 +1590,9 @@ def offload_phase(dev, width, height, smi, max_dup, n_leaves=POST_LEAVES,
             rows, m_rows, v_rows, tr.store.step, tr.valid, v.world_view,
             v.full_proj, v.campos, v.tan_fovx, v.tan_fovy, gt, bg, **tr._kw)
 
-    b1, b2, b1_err, b2_err = frame_kernels(frame, dev, width, height,
-                                           "offload frame", smi)
+    b1, b2, b1_err, b2_err = frame_kernels(capture_b1_inputs(frame), dev,
+                                           width, height, "offload frame",
+                                           smi)
     del tr, packed
     torch.cuda.empty_cache()
 
@@ -1859,6 +1895,572 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
         tau0={"ms": lod_launch_ms, "wrapper_ms": lod_wrap_ms,
               "plain_ms": lod_plain_ms, "bound_ms": lod_bound_ms,
               "bound_by": lod_bound_by})
+
+
+def structured_colors(pts):
+    """Multi-band spatial colour field (scripts/lod_fidelity_probe.py
+    :26-44): a coarse hue drift plus mid and fine bands of periods 1.4 /
+    0.4 / 0.11 / 0.04 world units, so that merging nodes past a few pixels
+    of granularity blurs them."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    two_pi = 2.0 * np.pi
+    r = np.stack([
+        0.30 * np.sin(two_pi * x / 1.4) + 0.18 * np.sin(two_pi * (y + z) / 0.4)
+        + 0.12 * np.sin(two_pi * x / 0.11) + 0.10 * np.sin(two_pi * y / 0.04),
+        0.30 * np.cos(two_pi * y / 1.4) + 0.18 * np.sin(two_pi * (x - z) / 0.4)
+        + 0.12 * np.sin(two_pi * z / 0.11) + 0.10 * np.sin(two_pi * x / 0.04),
+        0.30 * np.sin(two_pi * z / 1.4) + 0.18 * np.cos(two_pi * (x + y) / 0.4)
+        + 0.12 * np.sin(two_pi * y / 0.11) + 0.10 * np.sin(two_pi * z / 0.04),
+    ], axis=-1)
+    return np.clip(0.5 + 0.45 * r / 0.7, 0.02, 0.98).astype(np.float32)
+
+
+def pipeline_cameras(width, dev):
+    """The JAX pipeline run's cameras (tpu_pipeline_scale3.py:76-101): a
+    ring of PIPE["ring"] around each shell center at radius 1.1, 3.5 in
+    front, looking at it; then 4 global orbit views of radius 3.5. fov 1.0,
+    square frames."""
+    from hlod_gaussians_torch.utils.camera import make_camera
+
+    def cam_at(pos, look):
+        fwd = look - pos
+        fwd = fwd / np.linalg.norm(fwd)
+        up = np.array([0.0, 1.0, 0.0])
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        up2 = np.cross(fwd, right)
+        rwc = np.stack([right, up2, fwd], axis=0)
+        return make_camera(rwc.T, -rwc @ pos, 1.0, 1.0, width, width,
+                           device=dev)
+
+    cams = []
+    for c in PIPE_CENTERS.astype(np.float64):
+        for k in range(PIPE["ring"]):
+            ang = 2 * np.pi * (k + 0.5) / PIPE["ring"]
+            pos = c + np.array([1.1 * np.cos(ang), 1.1 * np.sin(ang), -3.5],
+                               np.float32)
+            cams.append(cam_at(pos.astype(np.float64), c))
+    for k in range(4):
+        ang = 2 * np.pi * k / 4
+        pos = np.array([3.5 * np.cos(ang), 3.5 * np.sin(ang), -3.0])
+        cams.append(cam_at(pos, np.array([0.0, 0.0, 5.0])))
+    return cams
+
+
+class SceneCamera:
+    """A scene camera carrying its ready view; R and T place its center for
+    the chunker (the JAX run's FakeInfo)."""
+
+    def __init__(self, v):
+        self.v = v
+        self.R = np.eye(3)
+        self.T = -v.campos.cpu().numpy().astype(np.float64)
+
+
+def pipeline_scene(dev, per):
+    """Ground truth: 9 spherical shells of `per` points on a 3x3 grid
+    (default_rng(7)), structured colours, rendered at every camera by the
+    port (SH 1, opacity 0.92, 16x16 tiles, max_dup 2^23, none truncated).
+    Returns (points, colours, views with images and exposure slots)."""
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.models import gaussians as gm
+    rng = np.random.default_rng(7)
+    parts = []
+    for c in PIPE_CENTERS:
+        d = rng.normal(size=(per, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True).clip(1e-9)
+        r = 0.7 + rng.normal(0, 0.01, (per, 1))
+        parts.append((c + d * r).astype(np.float32))
+    pts = np.concatenate(parts)
+    cols = structured_colors(pts)
+    cap = 1 << int(np.ceil(np.log2(len(pts))))
+    gt = gm.create_from_points(pts, cols, capacity=cap, sh_degree=1,
+                               opacity_init=0.92, device=dev)
+    act = gm.activate(gt)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=PIPE["gt_max_dup"], tight_binning=True)
+    views = []
+    for i, cam in enumerate(pipeline_cameras(PIPE["width"], dev)):
+        with torch.no_grad():
+            out = render.render_arrays(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                act.valid, cam.world_view, cam.full_proj, cam.campos,
+                cam.tan_fovx, cam.tan_fovy, torch.zeros(3, device=dev),
+                sh_degree=1, width=cam.width, height=cam.height, cfg=cfg,
+                k_max=1024)
+        if bool(out.truncated):
+            raise AssertionError(f"ground-truth render {i} truncated")
+        views.append(dataclasses.replace(cam, image=out.image,
+                                         exposure_idx=i))
+    return pts, cols, views
+
+
+class RssSampler:
+    """The process's resident set (VmRSS of /proc/self/status) read every
+    `every` seconds on a thread while the block runs: its value at the
+    start and the largest reading (GB)."""
+
+    def __init__(self, every=0.05):
+        import threading
+        self.every, self.start, self.peak = every, 0.0, 0.0
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def read():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1e6
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _run(self):
+        while not self.done.wait(self.every):
+            self.peak = max(self.peak, self.read())
+
+    def __enter__(self):
+        self.start = self.peak = self.read()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.read())
+
+
+def state_psnr(g, views, cfg):
+    """Mean PSNR of the Gaussians `g` rendered at `views` (black
+    background) against their images."""
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops.ssim import psnr
+    act = gm.activate(g)
+    out = []
+    with torch.no_grad():
+        for v in views:
+            r = render.render_arrays(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                act.valid, v.world_view, v.full_proj, v.campos, v.tan_fovx,
+                v.tan_fovy, torch.zeros(3, device=v.image.device),
+                sh_degree=1, width=v.width, height=v.height, cfg=cfg,
+                k_max=1024)
+            if bool(r.truncated):
+                raise AssertionError("a scaffold render truncated")
+            out.append(float(psnr(r.image, v.image)))
+    return statistics.mean(out)
+
+
+def pipeline_phase(dev, smi, per=None):
+    """Phase 14: pipeline.full_train.run_pipeline at the JAX package's
+    pipeline operating point (PIPE); returns the B1 and B2 launches of the
+    pipeline path, both kernels' numbers at a chunk-training frame and
+    their largest errors against the plain versions."""
+    import tempfile
+
+    import torch
+    from hlod_gaussians_torch import eval as eval_mod
+    from hlod_gaussians_torch.config import (ModelConfig, OptimizationConfig,
+                                             PostConfig, RasterizerConfig)
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    from hlod_gaussians_torch.data.scene import SceneInfo
+    from hlod_gaussians_torch.hierarchy import filter as flt
+    from hlod_gaussians_torch.hierarchy.cut import sanity_check_hierarchy
+    from hlod_gaussians_torch.models.gaussians import (NODE_CHILD_COUNT,
+                                                       NODE_DEPTH)
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.pipeline import chunking, full_train
+    from hlod_gaussians_torch.train import flat, post
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    per = per or PIPE["per"]
+    width = PIPE["width"]
+
+    log(f"[14] pipeline: run_pipeline at the JAX package's pipeline point "
+        f"(scripts/tpu_pipeline_scale3.py): 9 shells x {per} points, "
+        f"{width}x{width}, steps coarse / chunk / post "
+        f"{PIPE['coarse_iters']} / {PIPE['chunk_iters']} / "
+        f"{PIPE['post_iters']} (the JAX run's {PIPE_JAX['iters']}), an MCMC "
+        f"round every {PIPE['post_densify']}")
+    t0 = time.perf_counter()
+    pts, cols, views = pipeline_scene(dev, per)
+    torch.cuda.empty_cache()
+    n_ring = len(PIPE_CENTERS) * PIPE["ring"]
+    train_views = [v for i, v in enumerate(views[:n_ring]) if i % 3 != 0]
+    test_views = [v for i, v in enumerate(views[:n_ring]) if i % 3 == 0]
+    log(f"  scene: {len(pts)} ground-truth leaves, {len(views)} views "
+        f"rendered ({len(train_views)} train, {len(test_views)} ring test) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    scene = SceneInfo(points=pts, colors=cols,
+                      train_cameras=[SceneCamera(v) for v in train_views],
+                      test_cameras=[], extent=9.0,
+                      center=np.zeros(3, np.float32))
+    pcfg = full_train.PipelineConfig(
+        coarse_iters=PIPE["coarse_iters"], chunk_iters=PIPE["chunk_iters"],
+        post_iters=PIPE["post_iters"], skybox_num=1024,
+        coarse_capacity=PIPE["coarse_capacity"],
+        chunk_capacity=PIPE["chunk_capacity"], k_max=1024, mh_walk=True,
+        densification_interval=10_000, densify_from_iter=10_000,
+        opacity_reset_interval=100_000,
+        post_densify_interval=PIPE["post_densify"], chunk_size=2.9,
+        chunk_point_padding=0.15)
+    opt = OptimizationConfig(iterations=1500, densify_until_iter=0,
+                             densify_grad_threshold=1e8)
+    pconf = PostConfig(spt_root_volume=1e-3, min_spt_size=64,
+                       lambda_opacity=0.0, grow_fraction=0.005,
+                       max_sh_degree=1)
+    mcfg = ModelConfig(sh_degree=1)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=PIPE["max_dup"], tight_binning=True)
+    chunks = chunking.make_chunks(scene, chunk_size=pcfg.chunk_size,
+                                  point_padding=pcfg.chunk_point_padding,
+                                  min_n_cams=1, min_points=1)
+    if len(chunks) != 9:
+        raise AssertionError(f"make_chunks gave {len(chunks)} chunks, not 9")
+
+    entries = []
+    t_run = [0.0]
+
+    class Record:
+        """Keeps the run's log and echoes it as it comes."""
+
+        def log(self, **kv):
+            entries.append(kv)
+            log(f"    +{time.perf_counter() - t_run[0]:.1f} s "
+                + json.dumps(kv, default=float))
+
+    steps, stage, frame = [], ["coarse"], {}
+    orig = dict(train_step=flat.train_step,
+                post_train_step=post.post_train_step,
+                coarse=full_train.train_coarse_scaffold,
+                chunk=full_train.train_flat_scene,
+                post=full_train.post_optimize)
+
+    chunk_start_bytes = []
+
+    def staged(name, fn):
+        def run(*a, **kw):
+            stage[0] = name
+            if name == "chunk":
+                chunk_start_bytes.append(torch.cuda.memory_allocated(dev))
+            return fn(*a, **kw)
+        return run
+
+    def counted(fn, image_arg):
+        def step(*a, **kw):
+            # one chunk-training frame (the middle chunk's middle step): its
+            # B1 inputs, taken by a render stopped at B1's wrapper (no
+            # launch), are copied to hold B1 and B2 against their plain
+            # versions after the run
+            if stage[0] == "chunk":
+                frame["n"] = frame.get("n", 0) + 1
+                if frame["n"] == 4 * pcfg.chunk_iters + pcfg.chunk_iters // 2:
+                    fargs, fopts = capture_b1_inputs(lambda: fn(*a, **kw))
+                    frame["inputs"] = (tuple(x.detach().clone()
+                                             for x in fargs), fopts)
+            before = (kernel.launches, kernel_b2.launches)
+            ts, aux = fn(*a, **kw)
+            # the view a step trained on is its target image's tensor
+            steps.append((stage[0], (kernel.launches - before[0],
+                                     kernel_b2.launches - before[1]),
+                          aux.loss, aux.truncated, id(a[image_arg])))
+            return ts, aux
+        return step
+
+    out_root = tempfile.mkdtemp(prefix="pipeline_")
+    out = os.path.join(out_root, "run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss = RssSampler()
+    flat.train_step = counted(orig["train_step"], 6)
+    post.post_train_step = counted(orig["post_train_step"], 7)
+    full_train.train_coarse_scaffold = staged("coarse", orig["coarse"])
+    full_train.train_flat_scene = staged("chunk", orig["chunk"])
+    full_train.post_optimize = staged("post", orig["post"])
+    kernel.launches = kernel_b2.launches = 0
+    try:
+        with rss:
+            t0 = t_run[0] = time.perf_counter()
+            merged = full_train.run_pipeline(
+                scene, view_loader=lambda ci: ci.v, output_dir=out,
+                pcfg=pcfg, opt=opt, post=pconf, cfg=cfg, mcfg=mcfg,
+                logger=Record(), device=dev)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        flat.train_step = orig["train_step"]
+        post.post_train_step = orig["post_train_step"]
+        full_train.train_coarse_scaffold = orig["coarse"]
+        full_train.train_flat_scene = orig["chunk"]
+        full_train.post_optimize = orig["post"]
+    launches = (kernel.launches, kernel_b2.launches)
+    peak_dev_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # every step: one B1 and one B2 launch, finite, untruncated
+    want = {"coarse": pcfg.coarse_iters, "chunk": 9 * pcfg.chunk_iters,
+            "post": 9 * pcfg.post_iters}
+    got = {k: sum(s[0] == k for s in steps) for k in want}
+    bad = [(i, s[0], s[1]) for i, s in enumerate(steps) if s[1] != (1, 1)]
+    losses = torch.stack([s[2] for s in steps]).cpu()
+    # each chunk's loss on the views it trained more than once, at their
+    # first and last visit: the logged losses are of two views, 50 steps
+    # apart, and differ by view more than by 50 steps of training
+    chunk_steps = [(float(losses[i]), s[4]) for i, s in enumerate(steps)
+                   if s[0] == "chunk"]
+    revisits = []
+    for j in range(9):
+        run = chunk_steps[j * pcfg.chunk_iters:(j + 1) * pcfg.chunk_iters]
+        first, last = {}, {}
+        for k, (_, view) in enumerate(run):
+            first.setdefault(view, k)
+            last[view] = k
+        pairs = np.array([(run[first[v]][0], run[last[v]][0])
+                          for v in first if last[v] > first[v]]).reshape(-1, 2)
+        revisits.append((len(pairs),) + (tuple(pairs.mean(0)) if len(pairs)
+                                         else (np.nan, np.nan)))
+    trunc = torch.stack([torch.as_tensor(s[3]).reshape(()).to(losses.device)
+                         for s in steps]).bool()
+    log(f"  run_pipeline {run_s:.1f} s; steps {got} (want {want}); B1 / B2 "
+        f"launches {launches[0]} / {launches[1]}; truncated steps "
+        f"{int(trunc.sum())}; non-finite losses "
+        f"{int((~torch.isfinite(losses)).sum())}")
+    if (got != want or bad or launches != (len(steps), len(steps))
+            or bool(trunc.any()) or not bool(torch.isfinite(losses).all())):
+        raise AssertionError(f"pipeline steps: {got} vs {want}, launches "
+                             f"{launches}, off-count steps {bad[:5]}")
+    del steps, losses
+
+    # the stage seconds and losses from the run's log
+    by = {}
+    for e in entries:
+        by.setdefault(e["stage"], []).append(e)
+    sc = by["scaffold"][0]
+    # the scaffold against its initial state on the ring test views, on
+    # the targets' black background: each coarse step draws a random
+    # background, so its logged losses do not compare
+    from hlod_gaussians_torch.train import coarse
+    from hlod_gaussians_torch.utils import checkpoint
+    gt_cfg = dataclasses.replace(cfg, max_dup=PIPE["gt_max_dup"])
+    psnr_init = state_psnr(coarse.init_coarse(
+        pts, cols, pcfg.coarse_capacity, scene.extent,
+        skybox_num=pcfg.skybox_num,
+        n_exposures=full_train._exposure_bucket(len(train_views)),
+        device=dev).gaussians, test_views, gt_cfg)
+    psnr_coarse = state_psnr(checkpoint.load_flat_state(
+        os.path.join(out, "scaffold.npz"), device=dev).gaussians,
+        test_views, gt_cfg)
+    torch.cuda.empty_cache()
+    coarse_logged = [e["loss"] for e in by["coarse"]]
+    log(f"  coarse: {sc['seconds']:.1f} s ({sc['source']}; writing "
+        f"scaffold.npz {sc['save_s']:.1f} s), logged losses "
+        f"{[round(x, 5) for x in coarse_logged]}; the scaffold's PSNR on "
+        f"the ring test views {psnr_init:.3f} dB initial, {psnr_coarse:.3f} "
+        f"dB trained [{smi}]")
+    if not (np.isfinite(coarse_logged).all() and psnr_coarse > psnr_init):
+        raise AssertionError("the coarse stage did not train")
+    rounds = by["post_densify"]
+    if len(rounds) != 9:
+        raise AssertionError(f"{len(rounds)} MCMC rounds, not one a chunk")
+    post_logs = by["post"]
+    for k, c in enumerate(chunks):
+        name = f"chunk{c.index}"
+        logged = [e for e in by[name] if "loss" in e]
+        summary, = [e for e in by[name] if "train_s" in e]
+        r = rounds[k]
+        log(f"  {name}: {summary['n_rows']} trained rows, "
+            f"{summary['n_nodes']} tree nodes, post capacity "
+            f"{summary['post_capacity']}; train {summary['train_s']:.2f} s, "
+            f"build {summary['build_s']:.2f} s, post {summary['post_s']:.2f}"
+            f" s (round: densify {r['densify_s']:.2f} s, rebuild_spt "
+            f"{r['rebuild_s']:.2f} s, {r['n_relocated']} relocated, "
+            f"{r['n_added_pairs']} pairs added), save "
+            f"{summary['save_s']:.2f} s, anchors "
+            f"{summary['anchors_s']:.2f} s; logged losses "
+            f"{[round(e['loss'], 5) for e in logged]}; on the "
+            f"{revisits[k][0]} views it trained again, mean loss "
+            f"{revisits[k][1]:.5f} at the first visit, {revisits[k][2]:.5f} "
+            "at the last")
+        if not (np.isfinite([e["loss"] for e in logged]).all()
+                and revisits[k][0] > 0 and revisits[k][2] < revisits[k][1]):
+            raise AssertionError(f"{name}: the chunk loss did not fall")
+    if any(e["truncated"] for e in post_logs):
+        raise AssertionError("a post step truncated")
+    mg = by["merge"][0]
+    depth = int(merged.nodes[:, NODE_DEPTH].max())
+    log(f"  merge: {mg['n_nodes']} nodes from {mg['n_chunks']} chunks in "
+        f"{mg['seconds']:.1f} s (host numpy, merged.dhier written); max "
+        f"depth {depth} (the JAX run: {PIPE_JAX['nodes']} nodes, depth "
+        f"{PIPE_JAX['depth']}, PIPELINE_r05.json, a structural count)")
+    # each chunk's train and post states are freed before the next: the
+    # device memory in use as a chunk starts does not grow by a chunk
+    # state (2^19 rows of parameters and two Adam moments, >= 145 MB)
+    growth = (max(chunk_start_bytes) - chunk_start_bytes[0]) / 1e6
+    log(f"  run_pipeline's peak device memory {peak_dev_gb:.2f} GB "
+        f"(max_memory_allocated), in use as each chunk starts "
+        f"{[round(b / 1e9, 3) for b in chunk_start_bytes]} GB; host RSS "
+        f"{rss.start:.2f} GB at its start, the largest of its readings "
+        f"every {rss.every} s {rss.peak:.2f} GB [{smi}]")
+    if len(chunk_start_bytes) != 9 or growth > 100:
+        raise AssertionError(f"device memory grew by {growth:.1f} MB "
+                             "across the chunks")
+
+    # the artifacts
+    sanity_check_hierarchy(merged.nodes, np.ones(merged.nodes.shape[0], bool))
+    arts = []
+    for c in chunks:
+        cd = os.path.join(out, f"chunk_{c.index[0]}_{c.index[1]}")
+        d = dhier_io.load_dhier(os.path.join(cd, "hierarchy.dhier_opt"))
+        a = flt.read_anchors(os.path.join(cd, "anchors.bin"))
+        if not (len(a) and a.min() >= 0 and a.max() < d.nodes.shape[0]):
+            raise AssertionError(f"{cd}: anchors outside the tree")
+        arts += [os.path.join(cd, f) for f in (
+            "hierarchy.dhier_opt", "center.txt", "extent.txt", "anchors.bin")]
+    arts.append(os.path.join(out, "scaffold.npz"))
+    mtimes = {f: os.stat(f).st_mtime_ns for f in arts}
+    with open(os.path.join(out, "merged.dhier"), "rb") as f:
+        first = f.read()
+
+    # resume: every chunk artifact untouched, the merge byte-equal
+    t0 = time.perf_counter()
+    full_train.run_pipeline(
+        scene, view_loader=lambda ci: ci.v, output_dir=out, pcfg=pcfg,
+        opt=opt, post=pconf, cfg=cfg, mcfg=mcfg, skip_if_exists=True,
+        device=dev)
+    resume_s = time.perf_counter() - t0
+    with open(os.path.join(out, "merged.dhier"), "rb") as f:
+        same = f.read() == first
+    touched = [f for f in arts if os.stat(f).st_mtime_ns != mtimes[f]]
+    log(f"  resume (skip_if_exists): {resume_s:.1f} s, artifacts touched "
+        f"{len(touched)} of {len(arts)}, merged.dhier byte-equal {same}")
+    if touched or not same:
+        raise AssertionError(f"resume rewrote {touched} or changed the merge")
+    del first
+
+    # B1 and B2 at a chunk-training frame
+    b1, b2, b1_err, b2_err = frame_kernels(frame.pop("inputs"), dev, width,
+                                           width, "pipeline chunk frame",
+                                           smi)
+    torch.cuda.empty_cache()
+
+    # the tau sweep on the merged tree over the ring test views
+    from hlod_gaussians_torch.train.post import create_from_dhier
+    cap = 1 << int(np.ceil(np.log2(merged.pos.shape[0] + 1)))
+    st = create_from_dhier(merged, capacity=cap, device=dev)
+    eval_cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                                max_dup=PIPE["gt_max_dup"],
+                                tight_binning=True)
+    warned = []
+    t0 = time.perf_counter()
+    table = eval_mod.eval_views(
+        st, test_views, [v.image for v in test_views], EVAL_TAUS,
+        level_is_tau=True, budget=PIPE["eval_budget"], cfg=eval_cfg,
+        k_max=1024, warn=warned.append)
+    eval_s = time.perf_counter() - t0
+    for r in table:
+        log(f"  tau {r.level:4.1f}: PSNR {r.psnr:.3f}  SSIM {r.ssim:.4f}  "
+            f"GMSD {r.gmsd:.5f}  mean rendered {r.mean_rendered:.1f}")
+    from hlod_gaussians_torch.ops.ssim import psnr
+    black = statistics.mean(float(psnr(torch.zeros_like(v.image), v.image))
+                            for v in test_views)
+    leaf = merged.nodes[:, NODE_CHILD_COUNT] == 0
+    log(f"  eval {eval_s:.1f} s for {len(EVAL_TAUS) * len(test_views)} "
+        f"renders (state capacity {cap}); an all-black image scores PSNR "
+        f"{black:.3f}; the leaves' mean opacity "
+        f"{float(merged.opacity[leaf].mean()):.4f}; warnings {warned}")
+    rendered = [r.mean_rendered for r in table]
+    if (rendered[0] <= rendered[-1]
+            or any(a < b for a, b in zip(rendered, rendered[1:]))
+            or not all(np.isfinite(r.psnr) for r in table)
+            or not table[0].psnr >= table[-1].psnr):
+        raise AssertionError("the tau sweep on the merged tree is not "
+                             "monotone")
+    del st, merged
+    import shutil
+    shutil.rmtree(out_root)
+    torch.cuda.empty_cache()
+    return dict(b1=launches[0], b2=launches[1], b1_frame=b1, b2_frame=b2,
+                b1_err=b1_err, b2_err=b2_err)
+
+
+def write_png(path, img):
+    """An 8-bit RGB PNG of img [H, W, 3] in [0, 1] (zlib, no filter)."""
+    import struct
+    import zlib
+    h, w, _ = img.shape
+    raw = np.round(np.clip(img, 0, 1) * 255).astype(np.uint8)
+    rows = b"".join(b"\x00" + raw[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows, 6))
+                + chunk(b"IEND", b""))
+
+
+def cli_phase(dev, smi):
+    """The full-train CLI in a subprocess on the card: a small COLMAP scene
+    (the orbit of phase [13] over CLI_VIEWS views, its images rendered by
+    the port from 4,000 seeded points) -> merged.dhier."""
+    import tempfile
+
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    from hlod_gaussians_torch.hierarchy.cut import sanity_check_hierarchy
+    from hlod_gaussians_torch.models import gaussians as gm
+    rng = np.random.default_rng(21)
+    pts = (rng.normal(size=(4000, 3)) * 2.0).astype(np.float32)
+    cols = rng.uniform(0.1, 0.9, pts.shape).astype(np.float32)
+    st = gm.create_from_points(pts, cols, capacity=4096, sh_degree=1,
+                               opacity_init=0.8, device=dev)
+    act = gm.activate(st)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=8,
+                           max_dup=1 << 20)
+    argv = ["--coarse_iters", "4", "--chunk_iters", "4", "--post_iters",
+            "2", "--skybox_num", "64"]
+    with tempfile.TemporaryDirectory() as root:
+        write_orbit_colmap(os.path.join(root, "sparse", "0"), CLI_W, CLI_H,
+                           pts, n=CLI_VIEWS)
+        os.makedirs(os.path.join(root, "images"))
+        cams = post_bench_cameras(CLI_W, CLI_H, dev, n=CLI_VIEWS)
+        for i, cam in enumerate(cams):
+            with torch.no_grad():
+                img = render.render_arrays(
+                    act.means3d, act.scales, act.quats, act.opacities,
+                    act.shs, act.valid, cam.world_view, cam.full_proj,
+                    cam.campos, cam.tan_fovx, cam.tan_fovy,
+                    torch.zeros(3, device=dev), sh_degree=1, width=CLI_W,
+                    height=CLI_H, cfg=cfg).image
+            write_png(os.path.join(root, "images", f"view_{i:03d}.png"),
+                      img.permute(1, 2, 0).cpu().numpy())
+        out = os.path.join(root, "out")
+        cmd = [sys.executable, "-m", "hlod_gaussians_torch.cli",
+               "full-train", "-s", root, "-o", out] + argv
+        log(f"[14b] full-train CLI: {CLI_VIEWS}-view {CLI_W}x{CLI_H} COLMAP "
+            f"scene, python -m hlod_gaussians_torch.cli full-train "
+            f"{' '.join(argv)}")
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
+        log(f"  exit {proc.returncode} in {cli_s:.1f} s: {tail}")
+        merged = os.path.join(out, "merged.dhier")
+        if proc.returncode != 0 or not os.path.exists(merged):
+            raise AssertionError("the full-train CLI failed:\n"
+                                 + proc.stdout[-3000:] + proc.stderr[-3000:])
+        d = dhier_io.load_dhier(merged)
+        sanity_check_hierarchy(d.nodes, np.ones(d.nodes.shape[0], bool))
+        log(f"  merged.dhier: {d.nodes.shape[0]} nodes [{smi}]")
 
 
 def main():
@@ -2225,9 +2827,15 @@ def main():
     offr = offload_phase(dev, width, height, smi, postr["max_dup"])
     max_err = max(max_err, offr["b1_err"])
     b2_err = max(b2_err, offr["b2_err"])
+    torch.cuda.empty_cache()
 
-    # ---- 14. kernel table -------------------------------------------------
-    log(f"[14] done in {time.perf_counter() - t_start:.1f} s")
+    piper = pipeline_phase(dev, smi)
+    max_err = max(max_err, piper["b1_err"])
+    b2_err = max(b2_err, piper["b2_err"])
+    cli_phase(dev, smi)
+
+    # ---- 15. kernel table -------------------------------------------------
+    log(f"[15] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
@@ -2235,10 +2843,12 @@ def main():
         "source": "hlod_gaussians_torch/csrc/blend_forward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
         "launches": (flat_launches + lod_launches + train_launches
-                     + sum(lodr["b1"].values()) + postr["b1"] + offr["b1"]),
+                     + sum(lodr["b1"].values()) + postr["b1"] + offr["b1"]
+                     + piper["b1"]),
         "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
                                   "train": train_launches}, **lodr["b1"],
-                                 post=postr["b1"], offload=offr["b1"]),
+                                 post=postr["b1"], offload=offr["b1"],
+                                 pipeline=piper["b1"]),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2248,16 +2858,18 @@ def main():
         "lod_stream_tau0": lodr["tau0"],
         "post_frame": postr["b1_frame"],
         "offload_frame": offr["b1_frame"],
+        "pipeline_frame": piper["b1_frame"],
     }, {
         "name": "blend_backward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_backward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
         "launches": (flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values())
-                     + postr["b2"] + offr["b2"]),
+                     + postr["b2"] + offr["b2"] + piper["b2"]),
         "launches_by_path": dict({"flat": flat_b2, "lod": lod_b2,
                                   "train": train_b2}, **lodr["b2"],
-                                 post=postr["b2"], offload=offr["b2"]),
+                                 post=postr["b2"], offload=offr["b2"],
+                                 pipeline=piper["b2"]),
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
@@ -2266,6 +2878,7 @@ def main():
         "library_ms": None,
         "post_frame": postr["b2_frame"],
         "offload_frame": offr["b2_frame"],
+        "pipeline_frame": piper["b2_frame"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,3 +24,8 @@ from hlod_gaussians_torch.hierarchy.mcmc import (  # noqa: F401
     relocate_gs,
     add_new_gs,
 )
+from hlod_gaussians_torch.hierarchy.filter import (  # noqa: F401
+    appearance_filter_mask,
+    random_cut_mask,
+    sibling_weights,
+)

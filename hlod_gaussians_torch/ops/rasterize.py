@@ -25,6 +25,9 @@ from hlod_gaussians_torch.ops.binning import TileBins
 from hlod_gaussians_torch.ops.rasterize_xla import RenderOut, blend_features
 
 
+_TAIL = 1024
+
+
 def gaussian_grads(egrads: torch.Tensor, bins: TileBins, n: int):
     """Per-entry gradients [max_dup, 12] -> per-Gaussian [n, 12] (the
     `_expand` VJP, hlod_gaussians_tpu/ops/rasterize.py:88-121).
@@ -39,12 +42,18 @@ def gaussian_grads(egrads: torch.Tensor, bins: TileBins, n: int):
     ggen = torch.empty_like(egrads)
     ggen[bins.sorted_gen.long()] = egrads
     ggen = torch.where(bins.gen_valid[:, None], ggen, torch.zeros_like(ggen))
-    # entries past max_dup were dropped: clip their segments to the list
-    offsets = torch.cat([torch.clamp_max(bins.gen_offsets.long(), md),
-                         torch.full((1,), md, dtype=torch.long,
-                                    device=egrads.device)])
-    seg = torch.segment_reduce(ggen, "sum", offsets=offsets, axis=0,
-                               unsafe=True)                    # [n, 12]
+    # entries past max_dup were dropped: clip their segments to the list.
+    # The unused slots past the last candidate (zeros) are cut into extra
+    # segments of at most _TAIL entries, dropped after the reduction: a
+    # segment is summed by one thread, and the last Gaussian's segment
+    # would otherwise run serially to max_dup
+    starts = torch.clamp_max(bins.gen_offsets.long(), md)
+    tail = torch.arange(1, -(-md // _TAIL) + 1, dtype=torch.long,
+                        device=egrads.device) * _TAIL
+    tail = torch.maximum(tail, bins.num_candidates.long()).clamp_max(md)
+    seg = torch.segment_reduce(ggen, "sum",
+                               offsets=torch.cat([starts, tail]), axis=0,
+                               unsafe=True)[:n]                # [n, 12]
     out = torch.empty((n, egrads.shape[1]), dtype=egrads.dtype,
                       device=egrads.device)
     out[bins.order.long()] = seg

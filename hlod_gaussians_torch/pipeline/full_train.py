@@ -1,37 +1,52 @@
-"""End-to-end pipeline (port of hlod_gaussians_tpu/pipeline/full_train.py;
-reference scripts/full_train.py:45-263 + train_post.py).
+"""End-to-end pipeline: coarse scaffold -> per-chunk training -> hierarchy
+build -> post-optimization -> consolidation (port of
+hlod_gaussians_tpu/pipeline/full_train.py; reference
+scripts/full_train.py:45-263 + train_no_chunks.py:98-265).
 
-Ported so far: `PipelineConfig`, `_exposure_bucket` and the post-
-optimization loop `post_optimize` (full_train.py:33-54, 124-133, 167-241).
-The other stages (coarse scaffold, chunk training, hierarchy conversion,
-`run_pipeline`) are not ported yet.
+One program, no subprocesses or filesystem barriers: each stage is a
+Python call around the training steps, on the card unless the caller passes
+another device. `run_pipeline` strings the stages together over a chunked
+scene and merges the chunk hierarchies into one `.dhier`;
+`run_pipeline_no_chunks` builds one hierarchy over the scaffold. The JAX
+package's multi-process branch (one block of chunks per process, process 0
+merging) is not ported: a `torch.distributed` world of more than one
+process is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Sequence
+import traceback
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from hlod_gaussians_torch.config import (OptimizationConfig, PostConfig,
-                                         RasterizerConfig)
+from hlod_gaussians_torch.config import (ModelConfig, OptimizationConfig,
+                                         PostConfig, RasterizerConfig)
+from hlod_gaussians_torch.data import dhier as dhier_io
 from hlod_gaussians_torch.data.dhier import DHier
+from hlod_gaussians_torch.data.scene import SceneInfo, load_view
+from hlod_gaussians_torch.hierarchy import build as hb
+from hlod_gaussians_torch.hierarchy import filter as flt
 from hlod_gaussians_torch.hierarchy import spt as spt_mod
+from hlod_gaussians_torch.models import gaussians as gm
 from hlod_gaussians_torch.models import reorder
+from hlod_gaussians_torch.pipeline import chunking, merge
+from hlod_gaussians_torch.train import coarse as coarse_mod
+from hlod_gaussians_torch.train import flat
 from hlod_gaussians_torch.train import post as post_mod
+from hlod_gaussians_torch.utils import checkpoint as ckpt
 from hlod_gaussians_torch.utils import scheduler
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Stage iteration counts + capacities (reference defaults:
-    scripts/full_train.py:141-143, README.md:490-512). Copied field for
-    field; post_optimize reads post_densify_interval, k_max, mh_walk and
-    seed, and the coarse, chunk, skybox and densification fields wait for
-    the stages not ported yet."""
+    scripts/full_train.py:141-143, README.md:490-512), copied field for
+    field from the JAX package."""
 
     coarse_iters: int = 30_000
     chunk_iters: int = 30_000
@@ -64,6 +79,96 @@ def _exposure_bucket(n: int) -> int:
     while b < n:
         b <<= 1
     return b
+
+
+def train_flat_scene(
+    views: Sequence,                  # Cameras with .image on the device
+    points: np.ndarray, colors: np.ndarray,
+    scene_extent: float,
+    n_iters: int,
+    capacity: int,
+    *,
+    opt: OptimizationConfig = OptimizationConfig(),
+    cfg: RasterizerConfig = RasterizerConfig(),
+    pcfg: PipelineConfig = PipelineConfig(),
+    skybox_num: int = 0,
+    sh_degree: int = 3,
+    scale_big_gauss: bool = True,
+    logger=None,
+    stage: str = "chunk",
+    initial_state: Optional[gm.GaussianState] = None,
+    bg=None,
+    device=torch.device("cuda"),
+) -> flat.FlatTrainState:
+    """The train_single.py loop: step + densify/reset on schedule, and
+    every 50th step's loss, L1 and live rows to ``logger`` (a sync).
+
+    ``initial_state`` lets the caller pass a scaffold-conditioned chunk
+    state (gm.create_with_scaffold); otherwise a fresh point-cloud init on
+    ``device``."""
+    state = initial_state if initial_state is not None else \
+        gm.create_from_points(
+            points, colors, capacity=capacity, sh_degree=sh_degree,
+            n_exposures=_exposure_bucket(len(views)),
+            scene_radius=scene_extent,
+            skybox_num=skybox_num, device=device)
+    skybox_num = state.n_skybox
+    ts = flat.init_flat_train(state)
+
+    centers = np.stack([v.campos.cpu().numpy() for v in views])
+    order = scheduler.view_schedule(centers, len(views), n_iters,
+                                    seed=pcfg.seed, walk=pcfg.mh_walk)
+    w, h = views[0].width, views[0].height
+
+    bg = torch.zeros(3, device=state.xyz.device) if bg is None else bg
+    for it in range(n_iters):
+        v = views[int(order[it])]
+        ts, aux = flat.train_step(
+            ts, *_cam_arrays(v), v.image, bg,
+            alpha_mask=v.alpha_mask,
+            mono_invdepth=None if v.invdepth is None else v.invdepth[0],
+            depth_mask=None if v.depth_mask is None else v.depth_mask[0],
+            exposure_idx=v.exposure_idx, scene_extent=scene_extent,
+            opt=opt, cfg=cfg, width=w, height=h, k_max=pcfg.k_max,
+            sh_degree=sh_degree, use_exposure=True,
+            skybox_locked=skybox_num > 0, scale_big_gauss=scale_big_gauss)
+        if (pcfg.densify_from_iter < it < opt.densify_until_iter
+                and it % pcfg.densification_interval == 0):
+            ts, _ = flat.densify_step(ts, scene_extent, opt=opt)
+        if it > 0 and it % pcfg.opacity_reset_interval == 0 \
+                and it < opt.densify_until_iter:
+            ts = flat.reset_opacity(ts)
+        if logger and it % 50 == 0:
+            logger.log(stage=stage, it=it, loss=float(aux.loss),
+                       l1=float(aux.l1),
+                       n_alive=int(torch.sum(ts.gaussians.alive)))
+    return ts
+
+
+def state_to_hierarchy(ts: flat.FlatTrainState) -> DHier:
+    """Trained flat state -> merge hierarchy (.dhier), skipping skybox rows
+    (the GaussianHierarchyCreator stage, mainHierarchyCreator.cpp:41-184).
+    The rows are filtered and the tree built on the state's device."""
+    g = ts.gaussians
+    dev = g.xyz.device
+    keep = g.alive & (torch.arange(g.capacity, device=dev) >= g.n_skybox)
+    act = gm.activate(g)
+    means, scales, quats, ops, shs = (
+        a[keep] for a in (act.means3d, act.scales, act.quats,
+                          act.opacities, act.shs))
+
+    # input filtering (mainHierarchyCreator.cpp:87-152): drop NaN/Inf/huge
+    finite = (torch.isfinite(means).all(1) & torch.isfinite(scales).all(1)
+              & torch.isfinite(quats).all(1) & (ops > 0.0)
+              & (scales.amax(1) < 10.0))
+    h = hb.build_hierarchy(means[finite], scales[finite], quats[finite],
+                           ops[finite], shs[finite], device=dev)
+    sh_degree = {1: 0, 4: 1, 9: 2, 16: 3}[shs.shape[1]]
+    return DHier(
+        sh_degree=sh_degree, pos=h.pos, quat=h.quat,
+        log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
+        opacity=np.clip(h.opacity, 1e-4, 1.0 - 1e-6).astype(np.float32),
+        shs=h.sh.astype(np.float32), nodes=h.nodes)
 
 
 def post_optimize(
@@ -155,3 +260,360 @@ def post_optimize(
                        n_cut=int(cut.n_selected),
                        truncated=bool(aux.truncated))
     return ts
+
+
+def train_coarse_scaffold(
+    views: Sequence,
+    points: np.ndarray, colors: np.ndarray,
+    scene_extent: float,
+    n_iters: int,
+    capacity: int,
+    *,
+    opt: OptimizationConfig = OptimizationConfig(),
+    cfg: RasterizerConfig = RasterizerConfig(),
+    pcfg: Optional[PipelineConfig] = None,
+    skybox_num: int = 100_000,
+    logger=None,
+    bgs: Optional[Sequence] = None,
+    device=torch.device("cuda"),
+) -> flat.FlatTrainState:
+    """Faithful coarse stage (train_coarse.py:29-175): SH degree 1, xyz
+    frozen, opacity logit -3, random background per step, no exposure, no
+    densification, 0.1*extent big-Gaussian shrink.
+
+    The backgrounds come from a generator on ``device`` seeded with
+    pcfg.seed + 7, or from ``bgs`` (one [3] per step, e.g. another run's
+    draws replayed)."""
+    pcfg = pcfg or PipelineConfig()
+    coarse_opt = coarse_mod.coarse_opt_config(opt)
+    ts = coarse_mod.init_coarse(points, colors, capacity, scene_extent,
+                                skybox_num=skybox_num,
+                                n_exposures=_exposure_bucket(len(views)),
+                                device=device)
+    centers = np.stack([v.campos.cpu().numpy() for v in views])
+    order = scheduler.view_schedule(centers, len(views), n_iters,
+                                    seed=pcfg.seed, walk=pcfg.mh_walk)
+    w, h = views[0].width, views[0].height
+    gen = torch.Generator(device=device).manual_seed(pcfg.seed + 7)
+    for it in range(n_iters):
+        v = views[int(order[it])]
+        ts, aux = coarse_mod.coarse_step(
+            ts, _cam_arrays(v), v.image, gen, scene_extent,
+            opt=coarse_opt, cfg=cfg, width=w, height=h, k_max=pcfg.k_max,
+            bg=None if bgs is None else bgs[it])
+        if logger and it % 50 == 0:
+            logger.log(stage="coarse", it=it, loss=float(aux.loss),
+                       l1=float(aux.l1))
+    return ts
+
+
+def resolution_args(mcfg) -> tuple:
+    """(resolution_scale, max_width) for load_view from ModelConfig.resolution
+    (reference utils/camera_utils.py:19-54): -1 = native capped at 1600 px;
+    1/2/4/8 = explicit downscale factor, no cap."""
+    if mcfg.resolution in (1, 2, 4, 8):
+        return float(mcfg.resolution), 0
+    return 1.0, 1600
+
+
+def _refuse_multi_process() -> None:
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "run_pipeline runs in one process: the multi-process branch "
+            "(chunk blocks per process, process 0 merging) waits for the "
+            "port of parallel/distributed (ROADMAP item 10)")
+
+
+def _sync(device) -> float:
+    """Host clock after the device's queued work has finished."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def run_pipeline(
+    scene: SceneInfo,
+    view_loader: Callable[[object], object] = None,
+    output_dir: str = "",
+    *,
+    pcfg: PipelineConfig = PipelineConfig(),
+    opt: OptimizationConfig = OptimizationConfig(),
+    post: PostConfig = PostConfig(),
+    cfg: RasterizerConfig = RasterizerConfig(),
+    mcfg: Optional[ModelConfig] = None,
+    logger=None,
+    skip_if_exists: bool = False,
+    keep_running: bool = False,
+    device=torch.device("cuda"),
+) -> DHier:
+    """Full pipeline on a loaded scene. Returns the merged hierarchy.
+
+    view_loader maps a CameraInfo to a Camera with its tensors on
+    ``device`` (defaults to data.scene.load_view at ModelConfig.resolution).
+
+    ``skip_if_exists`` resumes a partially-completed run from output_dir
+    artifacts (the reference's --skip_if_exists, scripts/full_train.py:58,82,
+    158); ``keep_running`` continues past failed chunks (--keep_running,
+    scripts/full_train.py:59). ``mcfg`` supplies the reference ModelParams
+    knobs: resolution, white_background, skip_scale_big_gauss, sh_degree,
+    scaffold_file (resume the coarse stage from a saved scaffold), cap_max
+    (overrides PostConfig.max_cap when > 0).
+
+    With a ``logger``, the scaffold stage (with its scaffold.npz write),
+    each chunk and the merge also log their seconds (host clock after a
+    device sync), and each chunk its trained rows, tree nodes and post
+    capacity. Each chunk's training and
+    post states are freed before the next chunk; only the scaffold lives
+    across chunks."""
+    _refuse_multi_process()
+    mcfg = mcfg or ModelConfig()
+    if mcfg.cap_max > 0:
+        post = dataclasses.replace(post, max_cap=mcfg.cap_max)
+    bg = (torch.ones(3, device=device) if mcfg.white_background
+          else torch.zeros(3, device=device))
+
+    if view_loader is None:
+        # one exposure slot per image (reference assigns exposures per
+        # image; a constant exposure_idx=0 would collapse them all into
+        # one shared matrix)
+        scale, max_w = resolution_args(mcfg)
+        views_all = [load_view(ci, resolution_scale=scale, max_width=max_w,
+                               exposure_idx=i,
+                               train_test_exp=mcfg.train_test_exp,
+                               device=device)
+                     for i, ci in enumerate(scene.train_cameras)]
+    else:
+        views_all = [view_loader(ci) for ci in scene.train_cameras]
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+
+    # 1) coarse scaffold over every view (random bg, frozen xyz, skybox);
+    # a pre-trained scaffold_file (reference --scaffold_file) skips it
+    clock = _Clock(device, on=logger is not None)
+    coarse_path = os.path.join(output_dir, "scaffold.npz") if output_dir else ""
+    if mcfg.scaffold_file:
+        ts_coarse = ckpt.load_flat_state(mcfg.scaffold_file, device=device)
+        source = "scaffold_file"
+    elif skip_if_exists and coarse_path and os.path.exists(coarse_path):
+        ts_coarse = ckpt.load_flat_state(coarse_path, device=device)
+        source = "resumed"
+    else:
+        ts_coarse = train_coarse_scaffold(
+            views_all, scene.points, scene.colors, scene.extent,
+            pcfg.coarse_iters, pcfg.coarse_capacity, opt=opt, cfg=cfg,
+            pcfg=pcfg, skybox_num=pcfg.skybox_num, logger=logger,
+            device=device)
+        if coarse_path:
+            clock.mark()
+            ckpt.save_flat_state(coarse_path, ts_coarse)
+            clock.mark()
+        source = "trained"
+    if logger:
+        clock.mark()
+        m = clock.marks
+        logger.log(stage="scaffold", source=source, seconds=m[-1] - m[0],
+                   save_s=m[2] - m[1] if len(m) == 4 else 0.0)
+
+    # 2) chunks (falls back to one whole-scene "chunk")
+    chunks = chunking.make_chunks(scene, chunk_size=pcfg.chunk_size,
+                                  point_padding=pcfg.chunk_point_padding,
+                                  min_n_cams=1, min_points=1)
+    if not chunks:
+        chunks = [chunking.Chunk(index=(0, 0),
+                                 center=np.zeros(3, np.float32),
+                                 extent=np.full(3, pcfg.chunk_size, np.float32),
+                                 cameras=list(scene.train_cameras),
+                                 point_mask=np.ones(len(scene.points), bool))]
+
+    info_to_idx = {id(ci): i for i, ci in enumerate(scene.train_cameras)}
+    chunk_dhiers: List[DHier] = []
+    centers = []
+    for chunk in chunks:
+        cd = os.path.join(output_dir,
+                          f"chunk_{chunk.index[0]}_{chunk.index[1]}") \
+            if output_dir else ""
+        hier_path = os.path.join(cd, "hierarchy.dhier_opt") if cd else ""
+        if skip_if_exists and hier_path and os.path.exists(hier_path):
+            chunk_dhiers.append(dhier_io.load_dhier(hier_path))
+            centers.append(chunk.center)
+            continue
+        try:
+            # chunk-LOCAL exposure slots: the chunk state sizes its exposure
+            # table to len(cams), so the views' global exposure indices must
+            # be remapped or distinct images silently alias one slot
+            cams = [dataclasses.replace(views_all[info_to_idx[id(ci)]],
+                                        exposure_idx=j)
+                    for j, ci in enumerate(chunk.cameras)]
+            clock = _Clock(device, on=logger is not None)
+            dd, stats = _train_chunk(chunk, cams, scene, ts_coarse, clock,
+                                     pcfg=pcfg, opt=opt, post=post, cfg=cfg,
+                                     mcfg=mcfg, bg=bg, logger=logger,
+                                     device=device)
+            # merged even if writing its artifacts fails, as in the JAX
+            # package
+            chunk_dhiers.append(dd)
+            centers.append(chunk.center)
+            if cd:
+                _write_chunk(cd, chunk, dd, cams, post, clock, device)
+            if logger:
+                logger.log(stage=f"chunk{chunk.index}", **stats,
+                           **clock.seconds(("train_s", "build_s", "post_s",
+                                            "save_s", "anchors_s")))
+        except Exception as e:
+            if not keep_running:
+                raise
+            traceback.print_exc()
+            if logger:
+                logger.log(stage=f"chunk{chunk.index}", error=1,
+                           message=f"{type(e).__name__}: {e}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+    if not chunk_dhiers:
+        raise RuntimeError(
+            "no chunk hierarchies to merge — every chunk failed or no "
+            "hierarchy.dhier_opt artifacts exist (see the per-chunk error "
+            "log entries above)")
+    t0 = time.perf_counter()
+    merged = merge.merge_hierarchies(chunk_dhiers, np.stack(centers))
+    if output_dir:
+        dhier_io.save_dhier(os.path.join(output_dir, "merged.dhier"), merged)
+    if logger:
+        logger.log(stage="merge", n_chunks=len(chunk_dhiers),
+                   n_nodes=int(merged.nodes.shape[0]),
+                   seconds=time.perf_counter() - t0)
+    return merged
+
+
+class _Clock:
+    """Stage marks on the host clock after a device sync, taken only when
+    ``on`` (a logger reads them): otherwise no sync is added."""
+
+    def __init__(self, device, on: bool):
+        self.device, self.on, self.marks = device, on, []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.on:
+            self.marks.append(_sync(self.device))
+
+    def seconds(self, names) -> dict:
+        return {k: b - a for k, a, b in zip(names, self.marks,
+                                            self.marks[1:])}
+
+
+def _train_chunk(chunk, cams, scene, ts_coarse, clock, *, pcfg, opt, post,
+                 cfg, mcfg, bg, logger, device):
+    """One chunk of `run_pipeline`: scaffold-conditioned training, the
+    hierarchy and post-optimization. Returns the post-optimized hierarchy
+    and the chunk's trained rows, tree nodes and post capacity; its states
+    are dropped on return."""
+    pts = scene.points[chunk.point_mask]
+    cols = scene.colors[chunk.point_mask]
+    # scaffold conditioning (gaussian_model.py:866-919): ring-select
+    # the trained scaffold around this chunk and prepend it
+    init_state = gm.create_with_scaffold(
+        ts_coarse.gaussians, chunk.center, float(chunk.extent[0]),
+        pts, cols, pcfg.chunk_capacity, sh_degree=mcfg.sh_degree,
+        n_exposures=_exposure_bucket(len(cams)),
+        # dense synthetic scaffolds can put more ring rows around a
+        # chunk than its whole capacity; cap with headroom for the
+        # chunk's own points (+pad), evenly subsampled
+        max_scaffold_rows=max(0, pcfg.chunk_capacity - len(pts) - 4096),
+        device=device)
+    ts_chunk = train_flat_scene(
+        cams, pts, cols, scene.extent, pcfg.chunk_iters,
+        pcfg.chunk_capacity, opt=opt, cfg=cfg, pcfg=pcfg,
+        sh_degree=mcfg.sh_degree, logger=logger,
+        stage=f"chunk{chunk.index}", initial_state=init_state,
+        scale_big_gauss=not mcfg.skip_scale_big_gauss, bg=bg, device=device)
+    del init_state
+    clock.mark()
+    n_rows = int(torch.sum(ts_chunk.gaussians.alive))
+    d = state_to_hierarchy(ts_chunk)
+    del ts_chunk
+    clock.mark()
+    # the merge hierarchy has ~2n-1 nodes for n trained leaves, so a chunk
+    # trained past half capacity would not fit the chunk capacity — size
+    # the post stage to the actual tree
+    post_cap = max(pcfg.chunk_capacity,
+                   1 << int(np.ceil(np.log2(d.pos.shape[0] + 1))))
+    ts_post = post_optimize(
+        d, cams, scene.extent, pcfg.post_iters, post_cap,
+        opt=opt, post=post, cfg=cfg, pcfg=pcfg, logger=logger, device=device)
+    dd = post_mod.state_to_dhier(ts_post.gaussians)
+    del ts_post
+    clock.mark()
+    return dd, dict(n_rows=n_rows, n_nodes=int(d.pos.shape[0]),
+                    post_capacity=post_cap)
+
+
+def _write_chunk(cd, chunk, dd, cams, post, clock, device) -> None:
+    """A chunk's artifacts in `cd`: center.txt, extent.txt,
+    hierarchy.dhier_opt and anchors.bin."""
+    chunking.save_chunk_meta(cd, chunk)
+    dhier_io.save_dhier(os.path.join(cd, "hierarchy.dhier_opt"), dd)
+    clock.mark()
+    # anchors.bin next to the hierarchy (the merger chunk path's
+    # AppearanceFilter, mainHierarchyMerger.cpp:79-80)
+    vps = np.stack([v.campos.cpu().numpy() for v in cams[:64]])
+    anchors = flt.compute_anchors(
+        dd.nodes, dd.pos, np.exp(dd.log_scale).max(1),
+        np.ones(dd.nodes.shape[0], bool), vps, post.spt_target_granularity,
+        device=device)
+    flt.write_anchors(os.path.join(cd, "anchors.bin"), anchors)
+    clock.mark()
+
+
+def run_pipeline_no_chunks(
+    scene: SceneInfo,
+    view_loader: Callable[[object], object] = None,
+    output_dir: str = "",
+    *,
+    pcfg: PipelineConfig = PipelineConfig(),
+    opt: OptimizationConfig = OptimizationConfig(),
+    post: PostConfig = PostConfig(),
+    cfg: RasterizerConfig = RasterizerConfig(),
+    mcfg: Optional[ModelConfig] = None,
+    logger=None,
+    device=torch.device("cuda"),
+) -> DHier:
+    """Single-scene variant without chunking (reference train_no_chunks.py:
+    98-265): coarse scaffold over every view -> hierarchy built directly on
+    the scaffold -> in-process post-optimization. No merge step (one root).
+    ``mcfg.pretrained`` (a 3DGS .ply) replaces the coarse training stage
+    with the saved point cloud (reference --pretrained,
+    scene/__init__.py:82-83)."""
+    mcfg = mcfg or ModelConfig()
+    if view_loader is None:
+        def view_loader(ci):
+            return load_view(ci, device=device)
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+    views_all = [view_loader(ci) for ci in scene.train_cameras]
+
+    if mcfg.pretrained:
+        from hlod_gaussians_torch.data import ply as ply_io
+        g = gm.create_from_gaussian_ply(
+            ply_io.load_gaussian_ply(mcfg.pretrained), pcfg.coarse_capacity,
+            n_exposures=_exposure_bucket(len(views_all)), device=device)
+        ts_coarse = flat.init_flat_train(g)
+    else:
+        ts_coarse = train_coarse_scaffold(
+            views_all, scene.points, scene.colors, scene.extent,
+            pcfg.coarse_iters, pcfg.coarse_capacity, opt=opt, cfg=cfg,
+            pcfg=pcfg, skybox_num=pcfg.skybox_num, logger=logger,
+            device=device)
+
+    d = state_to_hierarchy(ts_coarse)
+    del ts_coarse
+    ts_post = post_optimize(
+        d, views_all, scene.extent, pcfg.post_iters, pcfg.chunk_capacity,
+        opt=opt, post=post, cfg=cfg, pcfg=pcfg,
+        skybox_num=pcfg.skybox_num, logger=logger, device=device)
+    out = post_mod.state_to_dhier(ts_post.gaussians)
+    if output_dir:
+        dhier_io.save_dhier(os.path.join(output_dir, "hierarchy.dhier_opt"),
+                            out)
+    return out

@@ -9,7 +9,7 @@ from a caller's `torch.Generator` where the JAX package takes a key."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +49,15 @@ def coarse_step(ts: flat.FlatTrainState, cam_arrays, gt_image,
                 generator: torch.Generator, scene_extent: float, *,
                 opt: OptimizationConfig, cfg: RasterizerConfig,
                 width: int, height: int, k_max: int = 1024,
+                bg: Optional[torch.Tensor] = None,
                 ) -> Tuple[flat.FlatTrainState, flat.StepAux]:
     """One coarse step with a random background color drawn from
-    `generator` (train_coarse.py:70)."""
+    `generator` (train_coarse.py:70), or the given [3] ``bg`` (a replayed
+    draw; then `generator` is not advanced)."""
     world_view, full_proj, campos, tan_fovx, tan_fovy = cam_arrays
-    bg = torch.rand((3,), generator=generator, device=generator.device).to(
-        gt_image.device)
+    if bg is None:
+        bg = torch.rand((3,), generator=generator, device=generator.device)
+    bg = torch.as_tensor(bg, dtype=torch.float32).to(gt_image.device)
     return flat.train_step(
         ts, world_view, full_proj, campos, tan_fovx, tan_fovy, gt_image, bg,
         exposure_idx=0, scene_extent=scene_extent,

@@ -3,7 +3,7 @@
 step on one GPU.
 
     python3 scripts/torch_frame_profile.py [--frames 8]
-        [--path lod_stream|post|offload]
+        [--path lod_stream|post|offload|pipeline]
 
 By default serves the flat 1080p bench request (render_arrays, 100k
 Gaussians, SH 3, 32x32 tiles, tight binning) and the tau-3 LOD request of
@@ -21,6 +21,9 @@ same tree (unperturbed) into a host store, cuts the orbit with
 train.offload.CachedCutter as chip_smoke.py's phase [13] does, and
 profiles DeviceResidentTrainer.step resident on view 0, then over the
 orbit with the next view prefetched (after a lap that fills the cache).
+With ``--path pipeline`` it profiles train.flat.train_step on the center
+chunk of chip_smoke.py's pipeline cell (9 shells, 2.25M points, 512x512)
+at that cell's max_dup 2^22 and at 2^21.
 Each path runs under torch.profiler
 and prints: the CUDA-event time per frame (or step), the host wall time,
 the device busy time (union of CUDA kernel intervals), the busy share of
@@ -306,15 +309,69 @@ def offload_profiles(dev, frames, max_dup=1 << 20):
           f"{bool(tr.last_truncated)}")
 
 
+def pipeline_profiles(dev, frames):
+    """flat.train_step on the center chunk of chip_smoke.py's pipeline cell
+    (the scaffold-conditioned state at its start, 2^19 rows, SH 1) over the
+    chunk's 512x512 views, with the cell's max_dup 2^22 and with 2^21."""
+    import torch
+    from chip_smoke import PIPE, SceneCamera, pipeline_scene
+    from hlod_gaussians_torch.config import (OptimizationConfig,
+                                             RasterizerConfig)
+    from hlod_gaussians_torch.data.scene import SceneInfo
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.pipeline import chunking
+    from hlod_gaussians_torch.train import coarse, flat
+    pts, cols, views = pipeline_scene(dev, PIPE["per"])
+    n_ring = 9 * PIPE["ring"]
+    scene = SceneInfo(points=pts, colors=cols, train_cameras=[
+        SceneCamera(v) for i, v in enumerate(views[:n_ring]) if i % 3],
+        test_cameras=[], extent=9.0, center=np.zeros(3, np.float32))
+    chunk = chunking.make_chunks(scene, chunk_size=2.9, point_padding=0.15,
+                                 min_n_cams=1, min_points=1)[4]
+    n = int(chunk.point_mask.sum())
+    cap = PIPE["chunk_capacity"]
+    scaffold = coarse.init_coarse(pts, cols, PIPE["coarse_capacity"], 9.0,
+                                  skybox_num=1024, device=dev).gaussians
+    g = gm.create_with_scaffold(
+        scaffold, chunk.center, float(chunk.extent[0]),
+        pts[chunk.point_mask], cols[chunk.point_mask], cap, sh_degree=1,
+        n_exposures=64, max_scaffold_rows=max(0, cap - n - 4096),
+        device=dev)
+    del scaffold
+    cams = [dataclasses.replace(c.v, exposure_idx=j)
+            for j, c in enumerate(chunk.cameras)]
+    bg = torch.zeros(3, device=dev)
+    opt = OptimizationConfig(iterations=1500, densify_until_iter=0)
+    print(f"pipeline chunk {chunk.index}: {int(g.alive.sum())} rows of "
+          f"{cap}, {len(cams)} views", flush=True)
+    for max_dup in (PIPE["max_dup"], PIPE["max_dup"] // 2):
+        cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                               max_dup=max_dup, tight_binning=True)
+        box = [flat.init_flat_train(g), 0, None]
+
+        def step():
+            v = cams[box[1] % len(cams)]
+            box[1] += 1
+            box[0], box[2] = flat.train_step(
+                box[0], v.world_view, v.full_proj, v.campos, v.tan_fovx,
+                v.tan_fovy, v.image, bg, exposure_idx=v.exposure_idx,
+                scene_extent=9.0, opt=opt, cfg=cfg, width=v.width,
+                height=v.height, sh_degree=1, skybox_locked=True)
+
+        profile(f"chunk step, max_dup {max_dup}", step, frames)
+        print(f"chunk step, max_dup {max_dup}: last step truncated "
+              f"{bool(box[2].truncated)}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--path", choices=("serve_train", "lod_stream", "post",
-                                       "offload"),
+                                       "offload", "pipeline"),
                     default="serve_train",
                     help="the flat and LOD requests and the train step, "
-                    "the full-size LOD stream, the post step, or the "
-                    "out-of-core step")
+                    "the full-size LOD stream, the post step, the "
+                    "out-of-core step, or a pipeline chunk's train step")
     args = ap.parse_args()
 
     import torch
@@ -344,6 +401,9 @@ def main():
         return 0
     if args.path == "offload":
         offload_profiles(dev, args.frames)
+        return 0
+    if args.path == "pipeline":
+        pipeline_profiles(dev, args.frames)
         return 0
     width, height = 1920, 1080
     cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,

@@ -3,7 +3,8 @@ PyTorch versions on the card, and the differentiable kernel path against
 the same render on the CPU, the post-optimization slice (SPT cuts, MCMC
 relocation and growth, one post step) on the card against the CPU, and
 the out-of-core trainer (pinned host store, device-resident row cache
-with and without prefetch) on the card against the CPU. Every
+with and without prefetch) on the card against the CPU, and a tiny
+run_pipeline on the card against the same run on the CPU. Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -549,3 +550,139 @@ def test_cuda_resident_trainer_matches_cpu(cuda_device):
         diff = (gp[k] - rp[k]).abs()
         assert not big.any() or float(diff[big].max()) <= 1e-6 * steps, k
         assert float(diff.max()) <= 2 * steps * lr + 1e-6, k
+
+
+class _SceneCamera:
+    """A scene camera carrying its ready view; R and T place its center for
+    the chunker."""
+
+    def __init__(self, v, center):
+        self.v = v
+        self.R = np.eye(3)
+        self.T = -np.asarray(center, np.float64)
+
+
+def _pipeline_scene(dev):
+    """tests/test_torch_full_pipeline.py's two-cluster scene (two chunks)
+    with its views on `dev`; the targets rendered on the CPU."""
+    from hlod_gaussians_torch.data.scene import SceneInfo
+    from hlod_gaussians_torch.models import gaussians as gm
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.normal(size=(24, 3)).astype(np.float32) * 0.3
+                          + np.array([x0, 0.0, 4.0], np.float32)
+                          for x0 in (-1.0, 1.0)])
+    cols = rng.uniform(0.1, 0.9, pts.shape).astype(np.float32)
+    act = gm.activate(gm.create_from_points(pts, cols, capacity=64,
+                                            sh_degree=1, opacity_init=0.8,
+                                            device=cpu))
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=8192)
+    infos = []
+    for x0 in (-1.0, 1.0):
+        for a in (-0.1, 0.1):
+            R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                          [-np.sin(a), 0, np.cos(a)]])
+            c = np.array([x0, 0.0, 0.0])
+            cam = make_camera(R, -R.T @ c, 0.9, 0.9, 64, 64, device=cpu)
+            img = render.render_arrays(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                act.valid, cam.world_view, cam.full_proj, cam.campos,
+                cam.tan_fovx, cam.tan_fovy, torch.zeros(3), sh_degree=1,
+                width=64, height=64, cfg=cfg).image.numpy()
+            v = make_camera(R, -R.T @ c, 0.9, 0.9, 64, 64, image=img,
+                            exposure_idx=len(infos), device=dev)
+            infos.append(_SceneCamera(v, c))
+    return SceneInfo(points=pts, colors=cols, train_cameras=infos,
+                     test_cameras=[], extent=5.0,
+                     center=np.zeros(3, np.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_run_pipeline_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """A tiny run_pipeline on the card (two chunks, three chunk and two
+    post steps, both from the scaffold the CPU run wrote) against the same
+    run on the CPU: the merged node table equal, and every leaf of the
+    card's tree matched one to one by position to a leaf of the CPU's
+    within the train step's tolerance (2 lr a step plus 1e-6). Leaves are
+    matched, not compared row by row: a scale moved within the tolerance
+    can turn a kd split's axis (its longest box side) and put rows into
+    other leaves of the same tree shape; interior rotations and scales are
+    not compared (tests/test_torch_full_pipeline.py says why). Each post
+    stage is then held node for node: post_optimize rerun on the card and
+    on the CPU with the views and settings of that device's own call, from
+    the CPU call's tree with every node's scales and rotation randomized,
+    ends within 1e-6 a step where the CPU's gradient is large and within 2
+    lr a step elsewhere (test_torch_post.assert_step_close's rule)."""
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.config import ModelConfig, PostConfig
+    from hlod_gaussians_torch.data.dhier import DHier
+    from hlod_gaussians_torch.pipeline import full_train
+    spec = dict(coarse_iters=3, chunk_iters=3, post_iters=2, skybox_num=4,
+                coarse_capacity=128, chunk_capacity=256, k_max=256,
+                mh_walk=True, post_densify_interval=1000, chunk_size=1.1,
+                chunk_point_padding=0.5)
+    opt = OptimizationConfig(iterations=50, densify_until_iter=0)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=8192)
+    post_fn = full_train.post_optimize
+    calls = dict(cpu=[], cuda=[])
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda_device)):
+        def recorded(*a, _name=name, **kw):
+            calls[_name].append((a, kw))
+            return post_fn(*a, **kw)
+        monkeypatch.setattr(full_train, "post_optimize", recorded)
+        scaffold = str(tmp_path / "cpu" / "scaffold.npz")
+        out[name] = full_train.run_pipeline(
+            _pipeline_scene(dev), view_loader=lambda ci: ci.v,
+            output_dir=str(tmp_path / name),
+            pcfg=full_train.PipelineConfig(**spec), opt=opt,
+            post=PostConfig(spt_root_volume=5e-3, min_spt_size=4), cfg=cfg,
+            mcfg=ModelConfig(sh_degree=1, scaffold_file=(
+                scaffold if name == "cuda" else "")), device=dev)
+    t, c = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(t.nodes, c.nodes)
+    lr = {k: max(optim.param_lrs(opt, i, 5.0)[k] for i in range(5))
+          for k in ("xyz", "f_dc", "log_scale", "opacity_logit")}
+    leaf = c.nodes[:, 2] == 0
+    t_pos, c_pos = t.pos[leaf], c.pos[leaf]
+    match = np.argmin(np.linalg.norm(t_pos[:, None] - c_pos[None], axis=-1),
+                      axis=1)
+    assert np.unique(match).size == match.size
+    for k, lk, f in (("pos", "xyz", 2), ("shs", "f_dc", 2),
+                     ("log_scale", "log_scale", 2),
+                     ("opacity", "opacity_logit", 0.5)):
+        np.testing.assert_allclose(getattr(t, k)[leaf],
+                                   getattr(c, k)[leaf][match], rtol=0,
+                                   atol=f * 5 * lr[lk] + 1e-6, err_msg=k)
+
+    rng = np.random.default_rng(5)
+    assert len(calls["cpu"]) == len(calls["cuda"]) == 2
+    for (ca, ckw), (ta, tkw) in zip(calls["cpu"], calls["cuda"]):
+        assert ta[2:5] == ca[2:5]
+        fields = ca[0]._asdict()
+        n = fields["nodes"].shape[0]
+        fields["log_scale"] = (fields["log_scale"] + 0.4 * rng.normal(
+            size=(n, 3))).astype(np.float32)
+        q = rng.normal(size=(n, 4))
+        fields["quat"] = (q / np.linalg.norm(q, axis=1, keepdims=True)
+                          ).astype(np.float32)
+        ref = post_fn(DHier(**fields), *ca[1:], **ckw)
+        got = post_fn(DHier(**fields), *ta[1:], **tkw)
+        n_iters = ca[3]
+        for k in ("xyz", "f_dc", "f_rest", "log_scale", "quat",
+                  "opacity_logit", "exposure"):
+            lr_k = max(optim.param_lrs(opt, i, ca[2])[k]
+                       for i in range(n_iters))
+            g = getattr(got.gaussians, k).cpu().numpy()
+            r = getattr(ref.gaussians, k).numpy()
+            m = np.abs(ref.adam.m[k].numpy())
+            big = m > 1e-3 * m.max()
+            diff = np.abs(g - r)
+            assert diff[big].max(initial=0.0) <= 1e-6 * n_iters, k
+            assert diff.max(initial=0.0) <= 2 * n_iters * lr_k + 1e-6, k
+        for k in ("alive", "nodes"):
+            np.testing.assert_array_equal(
+                getattr(got.gaussians, k).cpu().numpy(),
+                getattr(ref.gaussians, k).numpy())
