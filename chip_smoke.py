@@ -4,7 +4,9 @@ GPU: builds the blend kernels, holds each to its plain PyTorch version,
 serves flat and hierarchical-LOD renders, takes flat training steps, and
 builds, streams, evaluates and maintains a full-size LOD tree,
 post-optimizes a 4M-node tree on the card and out of core from a pinned
-host store through the public entry points, and prints the kernel table.
+host store, runs the pipeline, scales out over torch.distributed worlds
+and serves the live viewer through the public entry points, and prints
+the kernel table.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -115,7 +117,43 @@ Phases (any failure raises and exits non-zero):
      versions at a chunk-training frame; the tau sweep on the merged tree
      (mean_rendered falling, PSNR at tau 0 at least at tau 15). 14b: the
      full-train CLI in a subprocess on a small COLMAP scene.
-  15. the {"kernels": [...]} line, then the device line.
+  15. data-parallel: an NCCL world of one process on the card;
+     parallel.data_parallel.dp_train_step at 1920x1080 on the bench scene,
+     B = 4 views a step, 8 steps (losses falling, 4 B1 + 4 B2 launches a
+     step, step median); 4 identical views against one train_step (loss
+     rtol 1e-5, xyz atol 1e-5); the pallas backend against the xla one at
+     480x270 on every 10th Gaussian (the train step's tolerance; the plain
+     path's autograd at 1080p would keep tens of GB); then, in a Gloo
+     world of two processes on the card, one view a rank against the
+     one-rank two-view step (within 1e-5).
+  16. tile-parallel: B1 at each band of the 1080p bench frame split in two
+     (render_arrays' band=: band-local bins, max_dup / 2) against its
+     plain version, its launch and bound beside the whole frame's, the
+     band imbalance; in
+     the Gloo world render_tile_parallel against render_arrays and
+     render_lod_tile_parallel of the 1,048,575-node tree at tau 3 against
+     render_lod_masked (n_selected equal, 1e-4, untruncated).
+  17. chunk-parallel: two chunk states of 2^19 rows (250,000 points each)
+     at 512x512 step through chunk_parallel_step, each held to its own
+     train_step (bitwise, as two runs of one train_step are); in the Gloo
+     world K = 4 over two ranks and chunk_parallel_densify.
+  18. the multi-process pipeline: run_pipeline at PIPE_MP's cut of phase
+     [14]'s point (4 chunks, 20 / 30 / 10 steps) in this process and, at
+     the same time on the same card, over the Gloo ranks into one shared
+     directory: merged.dhier byte-equal (both under PyTorch's
+     deterministic algorithms), rank 1 returns None, each rank trains
+     exactly its block.
+  19. the viewer: cli.make_viewer on the phase-[6] tree saved as a .dhier;
+     a client thread sends 30 SIBR requests at 1920x1080 along
+     lod_bench_camera's poses and a keepalive: every reply's bytes and
+     status, frame 1 equal to an in-process render_lod at the same cut,
+     bucket and sampling, B1 at the first and the last served frame (the
+     1920x1440 bucket, 16x16 tiles, the LOD alpha) against its plain
+     version with the last one's launch and bound, p50 / p90 latency on
+     the client's clock; then
+     `python -m hlod_gaussians_torch.cli viewer` in a subprocess serves 3
+     requests and exits on SIGINT.
+  20. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -128,6 +166,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -616,11 +655,7 @@ def lod_bench_tree(dev, n=LOD_LEAVES):
     build_s = time.perf_counter() - t0
     m = h.nodes.shape[0]
     sanity_check_hierarchy(h.nodes, np.ones(m, bool))
-    d = dhier_io.DHier(
-        sh_degree=3, pos=h.pos, quat=h.quat,
-        log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
-        opacity=np.clip(h.opacity, 1e-4, 1.0 - 1e-6).astype(np.float32),
-        shs=h.sh.astype(np.float32), nodes=h.nodes)
+    d = bench_dhier(h)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bench.dhier")
@@ -634,6 +669,17 @@ def lod_bench_tree(dev, n=LOD_LEAVES):
             raise AssertionError(f".dhier round trip changed {k}")
     state = create_from_dhier(loaded, capacity=m, device=dev)
     return state, h, build_s, (file_s, file_bytes)
+
+
+def bench_dhier(h):
+    """A built hierarchy as the .dhier the pipeline writes
+    (pipeline/full_train.py's state_to_hierarchy conversion), SH 3."""
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    return dhier_io.DHier(
+        sh_degree=3, pos=h.pos, quat=h.quat,
+        log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
+        opacity=np.clip(h.opacity, 1e-4, 1.0 - 1e-6).astype(np.float32),
+        shs=h.sh.astype(np.float32), nodes=h.nodes)
 
 
 def lod_bench_camera(i, width, height, dev):
@@ -1915,7 +1961,7 @@ def structured_colors(pts):
     return np.clip(0.5 + 0.45 * r / 0.7, 0.02, 0.98).astype(np.float32)
 
 
-def pipeline_cameras(width, dev):
+def pipeline_cameras(width, dev, centers=PIPE_CENTERS):
     """The JAX pipeline run's cameras (tpu_pipeline_scale3.py:76-101): a
     ring of PIPE["ring"] around each shell center at radius 1.1, 3.5 in
     front, looking at it; then 4 global orbit views of radius 3.5. fov 1.0,
@@ -1934,7 +1980,7 @@ def pipeline_cameras(width, dev):
                            device=dev)
 
     cams = []
-    for c in PIPE_CENTERS.astype(np.float64):
+    for c in np.asarray(centers, np.float64):
         for k in range(PIPE["ring"]):
             ang = 2 * np.pi * (k + 0.5) / PIPE["ring"]
             pos = c + np.array([1.1 * np.cos(ang), 1.1 * np.sin(ang), -3.5],
@@ -1957,18 +2003,19 @@ class SceneCamera:
         self.T = -v.campos.cpu().numpy().astype(np.float64)
 
 
-def pipeline_scene(dev, per):
-    """Ground truth: 9 spherical shells of `per` points on a 3x3 grid
-    (default_rng(7)), structured colours, rendered at every camera by the
-    port (SH 1, opacity 0.92, 16x16 tiles, max_dup 2^23, none truncated).
-    Returns (points, colours, views with images and exposure slots)."""
+def pipeline_scene(dev, per, centers=PIPE_CENTERS):
+    """Ground truth: spherical shells of `per` points around `centers` (the
+    3x3 grid of PIPE_CENTERS by default; default_rng(7)), structured
+    colours, rendered at every camera by the port (SH 1, opacity 0.92,
+    16x16 tiles, max_dup 2^23, none truncated). Returns (points, colours,
+    views with images and exposure slots)."""
     import torch
     from hlod_gaussians_torch import render
     from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.models import gaussians as gm
     rng = np.random.default_rng(7)
     parts = []
-    for c in PIPE_CENTERS:
+    for c in centers:
         d = rng.normal(size=(per, 3))
         d /= np.linalg.norm(d, axis=-1, keepdims=True).clip(1e-9)
         r = 0.7 + rng.normal(0, 0.01, (per, 1))
@@ -1982,7 +2029,7 @@ def pipeline_scene(dev, per):
     cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
                            max_dup=PIPE["gt_max_dup"], tight_binning=True)
     views = []
-    for i, cam in enumerate(pipeline_cameras(PIPE["width"], dev)):
+    for i, cam in enumerate(pipeline_cameras(PIPE["width"], dev, centers)):
         with torch.no_grad():
             out = render.render_arrays(
                 act.means3d, act.scales, act.quats, act.opacities, act.shs,
@@ -2054,6 +2101,32 @@ def state_psnr(g, views, cfg):
     return statistics.mean(out)
 
 
+def pipeline_settings(coarse_iters, chunk_iters, post_iters, post_densify):
+    """run_pipeline's settings at the pipeline point (PIPE) for the given
+    step counts: (PipelineConfig, OptimizationConfig, PostConfig,
+    ModelConfig, RasterizerConfig)."""
+    from hlod_gaussians_torch.config import (ModelConfig, OptimizationConfig,
+                                             PostConfig, RasterizerConfig)
+    from hlod_gaussians_torch.pipeline import full_train
+    pcfg = full_train.PipelineConfig(
+        coarse_iters=coarse_iters, chunk_iters=chunk_iters,
+        post_iters=post_iters, skybox_num=1024,
+        coarse_capacity=PIPE["coarse_capacity"],
+        chunk_capacity=PIPE["chunk_capacity"], k_max=1024, mh_walk=True,
+        densification_interval=10_000, densify_from_iter=10_000,
+        opacity_reset_interval=100_000,
+        post_densify_interval=post_densify, chunk_size=2.9,
+        chunk_point_padding=0.15)
+    opt = OptimizationConfig(iterations=1500, densify_until_iter=0,
+                             densify_grad_threshold=1e8)
+    pconf = PostConfig(spt_root_volume=1e-3, min_spt_size=64,
+                       lambda_opacity=0.0, grow_fraction=0.005,
+                       max_sh_degree=1)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=PIPE["max_dup"], tight_binning=True)
+    return pcfg, opt, pconf, ModelConfig(sh_degree=1), cfg
+
+
 def pipeline_phase(dev, smi, per=None):
     """Phase 14: pipeline.full_train.run_pipeline at the JAX package's
     pipeline operating point (PIPE); returns the B1 and B2 launches of the
@@ -2063,8 +2136,7 @@ def pipeline_phase(dev, smi, per=None):
 
     import torch
     from hlod_gaussians_torch import eval as eval_mod
-    from hlod_gaussians_torch.config import (ModelConfig, OptimizationConfig,
-                                             PostConfig, RasterizerConfig)
+    from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.data import dhier as dhier_io
     from hlod_gaussians_torch.data.scene import SceneInfo
     from hlod_gaussians_torch.hierarchy import filter as flt
@@ -2098,23 +2170,9 @@ def pipeline_phase(dev, smi, per=None):
                       train_cameras=[SceneCamera(v) for v in train_views],
                       test_cameras=[], extent=9.0,
                       center=np.zeros(3, np.float32))
-    pcfg = full_train.PipelineConfig(
-        coarse_iters=PIPE["coarse_iters"], chunk_iters=PIPE["chunk_iters"],
-        post_iters=PIPE["post_iters"], skybox_num=1024,
-        coarse_capacity=PIPE["coarse_capacity"],
-        chunk_capacity=PIPE["chunk_capacity"], k_max=1024, mh_walk=True,
-        densification_interval=10_000, densify_from_iter=10_000,
-        opacity_reset_interval=100_000,
-        post_densify_interval=PIPE["post_densify"], chunk_size=2.9,
-        chunk_point_padding=0.15)
-    opt = OptimizationConfig(iterations=1500, densify_until_iter=0,
-                             densify_grad_threshold=1e8)
-    pconf = PostConfig(spt_root_volume=1e-3, min_spt_size=64,
-                       lambda_opacity=0.0, grow_fraction=0.005,
-                       max_sh_degree=1)
-    mcfg = ModelConfig(sh_degree=1)
-    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
-                           max_dup=PIPE["max_dup"], tight_binning=True)
+    pcfg, opt, pconf, mcfg, cfg = pipeline_settings(
+        PIPE["coarse_iters"], PIPE["chunk_iters"], PIPE["post_iters"],
+        PIPE["post_densify"])
     chunks = chunking.make_chunks(scene, chunk_size=pcfg.chunk_size,
                                   point_padding=pcfg.chunk_point_padding,
                                   min_n_cams=1, min_points=1)
@@ -2461,6 +2519,1027 @@ def cli_phase(dev, smi):
         d = dhier_io.load_dhier(merged)
         sanity_check_hierarchy(d.nodes, np.ones(d.nodes.shape[0], bool))
         log(f"  merged.dhier: {d.nodes.shape[0]} nodes [{smi}]")
+
+
+# ---- scale-out: phases 15-19 ---------------------------------------------
+# data-parallel: the phase-[5] bench scene, B = 4 of phase [3]'s views a
+# step; the xla-backend check at a reduced frame (the plain path's autograd
+# keeps every entry step of every tile: tens of GB at 1080p)
+DP = dict(views=4, steps=8, yaws=(-3.5, -1.0, 1.0, 3.5), gloo_yaws=(-1.0, 1.0),
+          xla_stride=10, xla_wh=(480, 270))
+# chunk-parallel: chunk states at the pipeline's chunk capacity, a shell of
+# PIPE["per"] points each, 512x512 views, 16x16 tiles
+CHUNK_ROWS = 1 << 19
+# the multi-process pipeline: PIPE's point cut to 4 shells (a 2x2 block of
+# its grid, 4 chunks) and coarse / chunk / post steps 20 / 30 / 10 with one
+# MCMC round a chunk
+PIPE_MP = dict(centers=(0, 1, 3, 4), iters=(20, 30, 10), post_densify=5)
+VIEWER = dict(frames=30, cli_requests=3)
+FRAME = (1920, 1080)           # the serving frame of phases 3-11 and 15-19
+LOD_TILE_TAU = 3.0
+
+
+def bench_state(dev, scene):
+    """The bench scene as a GaussianState (phase [5]'s `truth`)."""
+    from hlod_gaussians_torch import convert
+    n_g = scene["xyz"].shape[0]
+    arrays = dict(scene, exposure=np.eye(3, 4, dtype=np.float32)[None],
+                  alive=np.ones(n_g, bool),
+                  nodes=np.full((n_g, 6), -1, np.int32))
+    return convert.state_from_numpy(arrays, n_skybox=0, device=dev)
+
+
+def bench_view(yaw_deg, dev, width=None, height=None):
+    from hlod_gaussians_torch.utils.camera import make_camera
+    a = np.deg2rad(yaw_deg)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    return make_camera(R, np.zeros(3), 1.2, 0.8, width or FRAME[0],
+                       height or FRAME[1], device=dev)
+
+
+def bench_cfg(max_dup=352 * 1024):
+    from hlod_gaussians_torch.config import RasterizerConfig
+    return RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                            max_dup=max_dup, tight_binning=True)
+
+
+def dp_inputs(dev, yaws, scene, width=None, height=None, stride=1):
+    """Phase [5]'s training start (the bench scene, f_dc + 0.3 and xyz
+    jitter from default_rng(7)) and views at `yaws` whose targets are the
+    unperturbed scene's renders: (train state, stacked view tensors, gts).
+    ``stride`` keeps every stride-th Gaussian."""
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train import flat
+    width, height = width or FRAME[0], height or FRAME[1]
+    scene = {k: v[::stride] for k, v in scene.items()}
+    truth = bench_state(dev, scene)
+    act = gm.activate(truth)
+    cams = [bench_view(y, dev, width, height) for y in yaws]
+    gts = []
+    with torch.no_grad():
+        for c in cams:
+            gts.append(render.render_arrays(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                act.valid, c.world_view, c.full_proj, c.campos, c.tan_fovx,
+                c.tan_fovy, torch.zeros(3, device=dev), sh_degree=3,
+                width=width, height=height, cfg=bench_cfg()).image)
+    n = truth.capacity
+    rng = np.random.default_rng(7)
+    pert = dataclasses.replace(
+        truth, f_dc=truth.f_dc + 0.3,
+        xyz=truth.xyz + torch.as_tensor(
+            rng.normal(size=(n, 3)).astype(np.float32) * 0.01, device=dev))
+    st = lambda k: torch.stack([torch.as_tensor(getattr(c, k)) for c in cams])
+    views = (st("world_view"), st("full_proj"), st("campos"),
+             st("tan_fovx"), st("tan_fovy"))
+    return flat.init_flat_train(pert), views, torch.stack(gts)
+
+
+def dp_step(ts, views, gts, mesh, cfg, width=None, height=None, k_max=1024):
+    import torch
+    from hlod_gaussians_torch.parallel import data_parallel as dp
+    return dp.dp_train_step(
+        ts, *views, gts, torch.zeros(3, device=gts.device),
+        [0] * gts.shape[0], 8.0, mesh=mesh, cfg=cfg,
+        width=width or FRAME[0], height=height or FRAME[1], k_max=k_max,
+        sh_degree=3)
+
+
+def step_diff(a, b):
+    """Largest |a - b| over the parameters and densify statistics of two
+    FlatTrainStates, and whether they are bitwise equal."""
+    import torch
+    pairs = [(getattr(a.gaussians, k), getattr(b.gaussians, k))
+             for k in ("xyz", "f_dc", "f_rest", "log_scale", "quat",
+                       "opacity_logit", "exposure")]
+    pairs += [(getattr(a, k).float(), getattr(b, k).float())
+              for k in ("xyz_grad_accum", "denom", "max_radii")]
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+    same = all(torch.equal(x, y) for x, y in pairs)
+    return err, same
+
+
+def assert_train_step_close(got, ref, extent, what, opt=None):
+    """The train step's tolerances (tests/test_torch_train.py, card vs
+    card): Adam moments scaled to 3e-4, parameters to 1e-6 where the
+    reference gradient is large and within 2 lr elsewhere, visibility
+    statistics exact."""
+    import torch
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.config import OptimizationConfig
+    lrs = optim.param_lrs(opt or OptimizationConfig(), 0, extent)
+    worst = 0.0
+    for k, m_ref in ref.adam.m.items():
+        for part in ("m", "v"):
+            r = getattr(ref.adam, part)[k]
+            e = float((getattr(got.adam, part)[k] - r).abs().max())
+            worst = max(worst, e / max(float(r.abs().max()), 1e-30))
+        big = m_ref.abs() > 1e-3 * m_ref.abs().max()
+        diff = (getattr(got.gaussians, k) - getattr(ref.gaussians, k)).abs()
+        if big.any() and float(diff[big].max()) > 1e-6:
+            raise AssertionError(f"{what}: {k} off by "
+                                 f"{float(diff[big].max()):.3e}")
+        if float(diff.max()) > 2 * lrs[k] + 1e-6:
+            raise AssertionError(f"{what}: {k} beyond 2 lr")
+    same_stats = (torch.equal(got.denom, ref.denom)
+                  and torch.equal(got.max_radii, ref.max_radii))
+    if worst > GRAD_SCALED_ATOL or not same_stats:
+        raise AssertionError(f"{what}: moments {worst:.2e} scaled, "
+                             f"statistics equal {same_stats}")
+    return worst
+
+
+def nccl_world(dev, root):
+    """The production backend as a world of one process on the card."""
+    import torch
+    import torch.distributed as dist
+    from hlod_gaussians_torch.parallel import data_parallel as dp
+    from hlod_gaussians_torch.parallel import distributed as pdist
+    pdist.initialize(init_method="file://" + os.path.join(root, "nccl_rdv"),
+                     world_size=1, rank=0, device=dev)
+    t = torch.full((4,), 2.0, device=dev)
+    dist.all_reduce(t)
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.get_backend() != want or not bool((t == 2.0).all()):
+        raise AssertionError(f"NCCL world of one: backend "
+                             f"{dist.get_backend()}, all_reduce {t.tolist()}")
+    return dp.make_mesh(1, 1)
+
+
+def dp_phase(dev, smi, scene, mesh, root):
+    """Phase 15 on the NCCL world of one; the one-rank two-view reference
+    of the Gloo world's step is written to `root`."""
+    import torch
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.binning import bin_gaussians
+    from hlod_gaussians_torch.ops.gaussian_math import (compute_cov3d,
+                                                        project_gaussians)
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train import flat
+    kernel, kernel_b2 = (rasterize_cuda.blend_forward,
+                         rasterize_cuda.blend_backward)
+    cfg = bench_cfg()
+    log(f"[15] data-parallel step: dp_train_step at {FRAME[0]}x{FRAME[1]} "
+        f"on the bench "
+        f"scene ({scene['xyz'].shape[0]} Gaussians, SH 3), B = {DP['views']}"
+        f" views a step (yaws {DP['yaws']}), NCCL world of one")
+    ts, views, gts = dp_inputs(dev, DP["yaws"], scene)
+    step_ms, losses = [], []
+    kernel.launches = kernel_b2.launches = 0
+    for i in range(DP["steps"]):
+        before = (kernel.launches, kernel_b2.launches)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ts, loss = dp_step(ts, views, gts, mesh, cfg)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        delta = (kernel.launches - before[0], kernel_b2.launches - before[1])
+        if delta != (DP["views"],) * 2 or not np.isfinite(losses[-1]):
+            raise AssertionError(f"dp step {i}: loss {losses[-1]}, (B1, B2) "
+                                 f"launches {delta}")
+    launches = (kernel.launches, kernel_b2.launches)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dp steps did not lower the loss: {losses}")
+    log(f"  losses {[round(x, 6) for x in losses]}; step median "
+        f"{statistics.median(step_ms):.3f} ms (CUDA events, {DP['steps']} "
+        f"steps of {DP['views']} views; min {min(step_ms):.3f}), "
+        f"{launches[0]} B1 + {launches[1]} B2 launches [{smi}]")
+    del ts
+
+    # four identical views take the one-view step
+    ts0, views0, gts0 = dp_inputs(dev, (DP["yaws"][0],) * 4, scene)
+    got, loss = dp_step(ts0, views0, gts0, mesh, cfg)
+    one, aux = flat.train_step(
+        ts0, *(v[0] for v in views0), gts0[0], torch.zeros(3, device=dev),
+        exposure_idx=0, scene_extent=8.0, cfg=cfg, width=FRAME[0], height=FRAME[1],
+        sh_degree=3)
+    xyz_err = float((got.gaussians.xyz - one.gaussians.xyz).abs().max())
+    loss_rel = abs(float(loss) - float(aux.loss)) / abs(float(aux.loss))
+    log(f"  4 identical views vs one train_step: loss rel {loss_rel:.2e}, "
+        f"max|d xyz| {xyz_err:.3e}")
+    if loss_rel > 1e-5 or xyz_err > 1e-5:
+        raise AssertionError("dp over identical views differs from one step")
+    del got, one, ts0, views0, gts0
+
+    # the same step with the plain (xla) backend, at a reduced frame
+    w, h = DP["xla_wh"]
+    tsx, viewsx, gtsx = dp_inputs(dev, DP["yaws"], scene, w, h,
+                                  stride=DP["xla_stride"])
+    act = gm.activate(tsx.gaussians)
+    k_max = 0
+    for i in range(DP["views"]):
+        p = project_gaussians(
+            act.means3d, compute_cov3d(act.scales, act.quats), act.opacities,
+            viewsx[0][i], viewsx[1][i], w, h, w / (2 * viewsx[3][i]),
+            h / (2 * viewsx[4][i]), viewsx[3][i], viewsx[4][i],
+            valid_in=act.valid)
+        bins = bin_gaussians(p.xy, p.depth, p.radius, p.valid, w, h, 16, 16,
+                             1 << 22)
+        k_max = max(k_max, int(bins.tile_counts.max()))
+    k_max = -(-k_max // 32) * 32
+    small = dataclasses.replace(cfg, tile_w=16, tile_h=16, max_dup=1 << 22)
+    px, _ = dp_step(tsx, viewsx, gtsx, None, small, w, h)
+    xl, _ = dp_step(tsx, viewsx, gtsx, None,
+                    dataclasses.replace(small, backend="xla"), w, h, k_max)
+    worst = assert_train_step_close(px, xl, 8.0, "dp pallas vs xla")
+    log(f"  one step over {DP['views']} distinct views, pallas vs xla "
+        f"backend at {w}x{h} on every {DP['xla_stride']}th Gaussian "
+        f"(k_max {k_max}): moments within {worst:.2e} scaled, parameters "
+        "within the train step's tolerance")
+    del tsx, viewsx, gtsx, px, xl
+
+    # the reference of the Gloo world's step: one rank, both views
+    tsg, viewsg, gtsg = dp_inputs(dev, DP["gloo_yaws"], scene)
+    ref, ref_loss = dp_step(tsg, viewsg, gtsg, mesh, cfg)
+    torch.save(dict(state=_state_dict(ref), loss=float(ref_loss)),
+               os.path.join(root, "dp_ref.pt"))
+    return dict(launches=launches, step_ms=statistics.median(step_ms))
+
+
+def _state_dict(ts):
+    g = ts.gaussians
+    out = {k: getattr(g, k).cpu() for k in ("xyz", "f_dc", "f_rest",
+                                            "log_scale", "quat",
+                                            "opacity_logit", "exposure")}
+    out.update({k: getattr(ts, k).cpu() for k in ("xyz_grad_accum", "denom",
+                                                  "max_radii")})
+    return out
+
+
+def band_phase(dev, smi, scene):
+    """Phase 16's kernel numbers, in this process: B1 at each band of the
+    two-band 1080p bench frame (render_arrays with band=) against its plain
+    version, its bare launch and bound, beside the whole frame's."""
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
+    log(f"[16] tile-parallel frames: kernel B1 at the bands of the "
+        f"{FRAME[0]}x{FRAME[1]} bench frame split in two (band-local bins, "
+        "max_dup / 2 a band)")
+    act = gm.activate(bench_state(dev, scene))
+    cam = bench_view(0.0, dev)
+    cfg = bench_cfg()
+    out = {}
+    for n_bands in (1, 2):
+        for band in range(n_bands):
+            def run():
+                with torch.no_grad():
+                    render.render_arrays(
+                        act.means3d, act.scales, act.quats, act.opacities,
+                        act.shs, act.valid, cam.world_view, cam.full_proj,
+                        cam.campos, cam.tan_fovx, cam.tan_fovy,
+                        torch.zeros(3, device=dev), sh_degree=3,
+                        width=FRAME[0], height=FRAME[1], cfg=cfg,
+                        band=(band, n_bands))
+            fargs, fopts = capture_b1_inputs(run)
+            width, height = fopts["width"], fopts["height"]
+            name = "whole frame" if n_bands == 1 else f"band {band}"
+            if n_bands == 2 and band == 0:
+                got = rasterize_cuda.blend_forward(*fargs, **fopts)
+                torch.cuda.synchronize()
+                ref = blend_forward_plain(*fargs, **fopts)
+                out["b1_err"] = compare(f"band 0 of 2 ({width}x{height})",
+                                        got, ref, FRAME_ATOL)
+                del got, ref
+            evaluated, applied, _, read = work_of_frame(
+                *fargs, width, height, 32, 32, cfg.t_eps, cfg.alpha_min)
+            n_bytes, n_read, _ = frame_bytes(fargs, read, width, height,
+                                             4 * 4 + 4 + 4)
+            b_ms, b_by, parts = bound(n_bytes, OPS_EVAL * evaluated
+                                      + OPS_APPLY * applied)
+            ms = bare_launch_ms(fargs, fopts)
+            out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                             entries=int(fargs[3].sum()), height=height)
+            log(f"  B1 at the {name} ({width}x{height}, "
+                f"{int(fargs[3].sum())} entries, {n_read} read): launch "
+                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {parts}) "
+                f"[{smi}]")
+    bands = [out["band 0"]["ms"], out["band 1"]["ms"]]
+    out["imbalance"] = max(bands) / statistics.mean(bands)
+    log(f"  bands {bands[0]:.4f} + {bands[1]:.4f} ms against the whole "
+        f"frame's {out['whole frame']['ms']:.4f} ms; imbalance (max / mean) "
+        f"{out['imbalance']:.3f} [{smi}]")
+    return out
+
+
+def chunk_inputs(dev, k):
+    """k chunk states at CHUNK_ROWS rows, each shell i of the pipeline
+    point's layout (PIPE["per"] points around PIPE_CENTERS[i]) with the
+    first ring view of its shell at 512x512 as target: (states, stacked
+    view tensors, gts)."""
+    import torch
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.train import flat
+    per = PIPE["per"]
+    pts, cols, views = pipeline_scene(dev, per, PIPE_CENTERS[:k])
+    states = [flat.init_flat_train(gm.create_from_points(
+        pts[i * per:(i + 1) * per], cols[i * per:(i + 1) * per],
+        capacity=CHUNK_ROWS, sh_degree=1, opacity_init=0.5, device=dev))
+        for i in range(k)]
+    mine = [views[i * PIPE["ring"]] for i in range(k)]
+    st = lambda a: torch.stack([torch.as_tensor(getattr(v, a)) for v in mine])
+    return states, (st("world_view"), st("full_proj"), st("campos"),
+                    st("tan_fovx"), st("tan_fovy")), \
+        torch.stack([v.image for v in mine])
+
+
+def chunk_step(bts, views, gts, cfg):
+    import torch
+    from hlod_gaussians_torch.parallel import chunk_parallel as cpar
+    return cpar.chunk_parallel_step(
+        bts, *views, gts, torch.zeros(3, device=gts.device),
+        [0] * gts.shape[0], 9.0, cfg=cfg, width=PIPE["width"],
+        height=PIPE["width"], sh_degree=1, use_exposure=False)
+
+
+def one_chunk_step(ts, views, gts, i, cfg):
+    import torch
+    from hlod_gaussians_torch.train import flat
+    return flat.train_step(
+        ts, *(v[i] for v in views), gts[i], torch.zeros(3, device=gts.device),
+        exposure_idx=0, scene_extent=9.0, cfg=cfg, width=PIPE["width"],
+        height=PIPE["width"], sh_degree=1, use_exposure=False)
+
+
+def chunk_phase(dev, smi):
+    """Phase 17 on the NCCL world of one: two chunk states step through
+    chunk_parallel_step, each held to its own flat.train_step."""
+    import torch
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.parallel import chunk_parallel as cpar
+    kernel, kernel_b2 = (rasterize_cuda.blend_forward,
+                         rasterize_cuda.blend_backward)
+    _, _, _, _, cfg = pipeline_settings(0, 0, 0, 1)
+    log(f"[17] chunk-parallel step: 2 chunk states of {CHUNK_ROWS} rows "
+        f"({PIPE['per']} points each), {PIPE['width']}x{PIPE['width']}, "
+        f"16x16 tiles, max_dup {cfg.max_dup}")
+    states, views, gts = chunk_inputs(dev, 2)
+    a, _ = one_chunk_step(states[0], views, gts, 0, cfg)
+    b, _ = one_chunk_step(states[0], views, gts, 0, cfg)
+    err, bitwise = step_diff(a, b)
+    log(f"  two runs of one train_step: bitwise equal {bitwise} (max diff "
+        f"{err:.3e})")
+    del a, b
+    kernel.launches = kernel_b2.launches = 0
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    bts, aux = chunk_step(cpar.stack_states(states), views, gts, cfg)
+    ev[1].record()
+    ev[1].synchronize()
+    launches = (kernel.launches, kernel_b2.launches)
+    if launches != (2, 2) or not bool(torch.isfinite(aux.loss).all()) \
+            or bool(aux.truncated.any()):
+        raise AssertionError(f"chunk-parallel step: launches {launches}, "
+                             f"loss {aux.loss.tolist()}, truncated "
+                             f"{aux.truncated.tolist()}")
+    worst = 0.0
+    for i, ts in enumerate(cpar.unstack_states(bts)):
+        one, _ = one_chunk_step(states[i], views, gts, i, cfg)
+        e, same = step_diff(ts, one)
+        worst = max(worst, e)
+        if bitwise and not same:
+            raise AssertionError(f"chunk {i} differs from its train_step")
+        if not bitwise:
+            assert_train_step_close(ts, one, 9.0, f"chunk {i}")
+    log(f"  each chunk vs its own train_step: "
+        f"{'bitwise equal' if bitwise else f'max diff {worst:.3e}'}; losses "
+        f"{[round(float(x), 6) for x in aux.loss]}; step "
+        f"{ev[0].elapsed_time(ev[1]):.3f} ms for 2 chunks (CUDA events), "
+        f"{launches[0]} B1 + {launches[1]} B2 launches [{smi}]")
+    return dict(launches=launches, bitwise=bitwise)
+
+
+def pipeline_mp_inputs(dev):
+    """The multi-process pipeline's scene and settings (PIPE_MP)."""
+    from hlod_gaussians_torch.data.scene import SceneInfo
+    centers = PIPE_CENTERS[list(PIPE_MP["centers"])]
+    pts, cols, views = pipeline_scene(dev, PIPE["per"], centers)
+    n_ring = len(centers) * PIPE["ring"]
+    train = [v for i, v in enumerate(views[:n_ring]) if i % 3 != 0]
+    scene = SceneInfo(points=pts, colors=cols,
+                      train_cameras=[SceneCamera(v) for v in train],
+                      test_cameras=[], extent=9.0,
+                      center=np.zeros(3, np.float32))
+    return scene, pipeline_settings(*PIPE_MP["iters"],
+                                    PIPE_MP["post_densify"])
+
+
+def run_pipeline_mp(dev, out, logger=None):
+    """run_pipeline at PIPE_MP's point under PyTorch's deterministic
+    algorithms (warn-only; the ops without a deterministic form are
+    returned): without them the post stage's backward accumulates into
+    shared rows with atomics and two runs differ in the last bits, and
+    through the MCMC rounds in their node counts. -> (merged, warnings)."""
+    import warnings
+
+    import torch
+    from hlod_gaussians_torch.pipeline import full_train
+    scene, (pcfg, opt, pconf, mcfg, cfg) = pipeline_mp_inputs(dev)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            merged = full_train.run_pipeline(
+                scene, view_loader=lambda ci: ci.v, output_dir=out,
+                pcfg=pcfg, opt=opt, post=pconf, cfg=cfg, mcfg=mcfg,
+                logger=logger, device=dev)
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    ops = sorted({str(w.message).split(" does not have")[0][:80]
+                  for w in caught if "deterministic" in str(w.message)})
+    return merged, ops
+
+
+class ListLogger:
+    def __init__(self):
+        self.rows = []
+
+    def log(self, **kv):
+        self.rows.append(kv)
+
+
+def gloo_rank(rank, n, root, chunk_bitwise, device="cuda"):
+    """A rank of the Gloo world of two on the card: phase [15]'s step with
+    one view a rank, [16]'s banded frames, [17]'s K = 4 chunks and [18]'s
+    pipeline, each with its kernel launches; results to
+    root/rank<r>.json (the dp step's state to root/dp_gloo.pt)."""
+    import torch
+    import torch.distributed as dist
+    from hlod_gaussians_torch.config import MeshConfig
+    from hlod_gaussians_torch.hierarchy import cut as cut_mod
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.parallel import chunk_parallel as cpar
+    from hlod_gaussians_torch.parallel import data_parallel as dp
+    from hlod_gaussians_torch.parallel import distributed as pdist
+    from hlod_gaussians_torch.parallel import tile_parallel as tp
+    from hlod_gaussians_torch.pipeline import chunking
+    kernel, kernel_b2 = (rasterize_cuda.blend_forward,
+                         rasterize_cuda.blend_backward)
+    dev = torch.device(device)
+    res = {}
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        kernel.launches = kernel_b2.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (kernel.launches, kernel_b2.launches), \
+            time.perf_counter() - t0
+
+    # [15] one view a rank
+    scene = load_bench_scene()
+    mesh = dp.make_mesh(2, 1)
+    ts, views, gts = dp_inputs(dev, DP["gloo_yaws"], scene)
+    mine = dp.batch_sharding(mesh)
+
+    def step():
+        return dp.dp_train_step(
+            ts, *(mine(v) for v in views), mine(gts),
+            torch.zeros(3, device=dev), [0], 8.0, mesh=mesh, cfg=bench_cfg(),
+            width=FRAME[0], height=FRAME[1], sh_degree=3)
+    step()                                  # warm-up, from the same state
+    (new, loss), launches, sec = launched(step)
+    if rank == 0:
+        torch.save(dict(state=_state_dict(new), loss=float(loss)),
+                   os.path.join(root, "dp_gloo.pt"))
+    res["dp"] = dict(loss=float(loss), launches=launches, seconds=sec)
+    del ts, views, gts, new
+
+    # [16] banded frames: flat 1080p and the LOD bench tree at tau 3
+    tile_mesh = dp.make_mesh_from_config(MeshConfig(data=1, tile=2))
+    act = gm.activate(bench_state(dev, scene))
+    cam = bench_view(0.0, dev)
+    flat_args = (act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                 act.valid, cam.world_view, cam.full_proj, cam.campos,
+                 cam.tan_fovx, cam.tan_fovy, torch.zeros(3, device=dev))
+    with torch.no_grad():
+        (img, trunc), launches, sec = launched(
+            lambda: tp.render_tile_parallel(
+                *flat_args, tile_mesh, sh_degree=3, width=FRAME[0], height=FRAME[1],
+                cfg=bench_cfg()))
+        one = render.render_arrays(*flat_args, sh_degree=3, width=FRAME[0],
+                                   height=FRAME[1], cfg=bench_cfg())
+    res["tile_flat"] = dict(err=float((img - one.image).abs().max()),
+                            truncated=bool(trunc),
+                            shape=list(img.shape), launches=launches,
+                            seconds=sec)
+    del act, img, one
+    lstate, _, _, _ = lod_bench_tree(dev)
+    lact = gm.activate(lstate)
+    lcam = lod_bench_camera(0, *FRAME, dev)
+    target = lod_target(LOD_TILE_TAU, lcam, FRAME[0])
+    pcache = cut_mod.build_parent_cache(
+        lstate.nodes, lact.means3d, torch.max(lact.scales, dim=1).values)
+    itab = cut_mod.build_interp_table(
+        dict(means3d=lact.means3d, scales=lact.scales, quats=lact.quats,
+             opacities=lact.opacities, shs=lact.shs), lstate.nodes)
+    largs = (lact.means3d, lact.scales, lact.quats, lact.opacities, lact.shs,
+             lstate.nodes, lstate.alive, lcam.world_view, lcam.full_proj,
+             lcam.campos, lcam.tan_fovx, lcam.tan_fovy,
+             torch.zeros(3, device=dev), target)
+    lod_cfg = bench_cfg(1 << 21)
+    with torch.no_grad():
+        (img, n_sel, trunc), launches, sec = launched(
+            lambda: tp.render_lod_tile_parallel(
+                *largs, tile_mesh, None, pcache, itab, sh_degree=3,
+                width=FRAME[0], height=FRAME[1], cfg=lod_cfg, use_frustum=False))
+        one, n_one = render.render_lod_masked(
+            *largs, None, pcache, None, itab, sh_degree=3, width=FRAME[0],
+            height=FRAME[1], cfg=lod_cfg, use_frustum=False)
+    res["tile_lod"] = dict(err=float((img - one.image).abs().max()),
+                           n_selected=int(n_sel), n_one=int(n_one),
+                           truncated=bool(trunc) or bool(one.truncated),
+                           launches=launches, seconds=sec)
+    del lstate, lact, pcache, itab, largs, img, one
+    torch.cuda.empty_cache()
+
+    # [17] K = 4 chunks, two a rank
+    _, _, _, _, ccfg = pipeline_settings(0, 0, 0, 1)
+    states, cviews, cgts = chunk_inputs(dev, 4)
+    bts = cpar.shard_chunk_states(cpar.stack_states(states), mesh)
+    block = dp.batch_sharding(mesh)
+    cviews, cgts = tuple(block(v) for v in cviews), block(cgts)
+    (stepped, aux), launches, sec = launched(
+        lambda: chunk_step(bts, cviews, cgts, ccfg))
+    mine_states = block(list(range(4)))
+    diffs = []
+    for i, ts in enumerate(cpar.unstack_states(stepped)):
+        one, _ = one_chunk_step(states[mine_states[i]], cviews, cgts, i,
+                                ccfg)
+        e, same = step_diff(ts, one)
+        if chunk_bitwise and not same:
+            raise AssertionError(f"rank {rank} chunk {i}: not bitwise")
+        if not chunk_bitwise:
+            assert_train_step_close(ts, one, 9.0, f"chunk {i}")
+        diffs.append(e)
+    boosted = cpar.stack_states([dataclasses.replace(
+        ts, xyz_grad_accum=torch.full_like(ts.xyz_grad_accum, 1e9),
+        max_radii=torch.full_like(ts.max_radii, 100.0))
+        for ts in cpar.unstack_states(stepped)])
+    _, n_split = cpar.chunk_parallel_densify(boosted, 9.0)
+    res["chunks"] = dict(chunks=mine_states, loss=aux.loss.tolist(),
+                         truncated=bool(aux.truncated.any()), diffs=diffs,
+                         n_split=n_split.tolist(), launches=launches,
+                         seconds=sec)
+    del states, bts, stepped, boosted, cviews, cgts
+    torch.cuda.empty_cache()
+
+    # [18] the pipeline into the shared directory
+    dist.barrier()
+    logger = ListLogger()
+    scene_mp, (pcfg, *_) = pipeline_mp_inputs(dev)
+    chunks = chunking.make_chunks(scene_mp, chunk_size=pcfg.chunk_size,
+                                  point_padding=pcfg.chunk_point_padding,
+                                  min_n_cams=1, min_points=1)
+    block_idx = pdist.process_chunk_assignment(len(chunks))
+    (merged, _), launches, sec = launched(lambda: run_pipeline_mp(
+        dev, os.path.join(root, "mp"), logger))
+    trained = sorted({r["stage"] for r in logger.rows
+                      if r["stage"].startswith("chunk(") and "n_rows" in r})
+    res["pipeline"] = dict(
+        returned=merged is not None, launches=launches, seconds=sec,
+        trained=trained,
+        block=sorted(f"chunk{chunks[i].index}" for i in block_idx))
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+class GlooWorld:
+    """The Gloo world of two processes on the card (NCCL refuses two ranks
+    on one device), run from a thread so that this process can take phase
+    [18]'s one-process run meanwhile."""
+
+    def __init__(self, dev, root, chunk_bitwise):
+        import threading
+        from hlod_gaussians_torch.parallel.dryrun import spawn_world
+        self.error, self.t0 = None, time.perf_counter()
+
+        def run():
+            try:
+                spawn_world(gloo_rank, 2, (root, chunk_bitwise, str(dev)),
+                            device=dev, backend="gloo", timeout_s=900.0,
+                            threads=2)
+            except BaseException as e:  # raised again by join()
+                self.error = e
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        self.seconds = time.perf_counter() - self.t0
+        if self.error is not None:
+            raise self.error
+
+
+def gloo_phases(dev, smi, root, world, chunk_res):
+    """Phases 15-18's parts in the Gloo world of two ranks on the card,
+    each checked here once the world has ended; returns the launches of
+    each path (both ranks)."""
+    import torch
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    world.join()
+    world_s = world.seconds
+    log("[15-18] the Gloo world of two processes on the card")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"  world of two ran in {world_s:.1f} s (spawn, the bench scene, "
+        "the LOD tree, the chunk states and the pipeline in each rank; "
+        "phase [18]'s one-process run shared the card meanwhile)")
+    sums = {k: tuple(sum(r[k]["launches"][j] for r in ranks)
+                     for j in range(2))
+            for k in ("dp", "tile_flat", "tile_lod", "chunks", "pipeline")}
+
+    # [15] one view a rank against one rank with both views
+    ref = torch.load(os.path.join(root, "dp_ref.pt"))
+    got = torch.load(os.path.join(root, "dp_gloo.pt"))
+    diff = max(float((got["state"][k].float() - v.float()).abs().max())
+               for k, v in ref["state"].items())
+    bitwise = all(torch.equal(got["state"][k], v)
+                  for k, v in ref["state"].items())
+    log(f"  [15] Gloo dp step, one view a rank: loss {got['loss']:.6f} vs "
+        f"{ref['loss']:.6f} one rank two views; parameters and densify "
+        f"statistics max |d| {diff:.3e} (bitwise {bitwise}); "
+        f"{sums['dp'][0]} B1 + {sums['dp'][1]} B2 launches; rank step "
+        f"{ranks[0]['dp']['seconds'] * 1e3:.1f} / "
+        f"{ranks[1]['dp']['seconds'] * 1e3:.1f} ms host wall after a "
+        f"warm-up step, both ranks on one card [{smi}]")
+    if diff > 1e-5 or abs(got["loss"] - ref["loss"]) > 1e-5 * abs(
+            ref["loss"]) or sums["dp"] != (2, 2):
+        raise AssertionError("the Gloo dp step differs from the one-rank "
+                             "two-view step")
+
+    # [16] banded frames
+    for r in ranks:
+        tf, tl = r["tile_flat"], r["tile_lod"]
+        if (tf["err"] > FRAME_ATOL or tf["truncated"]
+                or tf["shape"] != [3, FRAME[1], FRAME[0]]
+                or tl["err"] > FRAME_ATOL
+                or tl["truncated"] or tl["n_selected"] != tl["n_one"]
+                or tf["launches"] != [1, 0] or tl["launches"] != [1, 0]):
+            raise AssertionError(f"tile-parallel frames: {r}")
+    rows = -(-FRAME[1] // 32)
+    log(f"  [16] render_tile_parallel {FRAME[0]}x{FRAME[1]} ({rows} tile "
+        f"rows, 2 bands of {rows // 2}) vs render_arrays: max|d| "
+        f"{max(r['tile_flat']['err'] for r in ranks):.3e}; "
+        f"render_lod_tile_parallel of the {2 * LOD_LEAVES - 1}-node tree at "
+        f"tau {LOD_TILE_TAU} vs render_lod_masked: n_selected "
+        f"{ranks[0]['tile_lod']['n_selected']} (equal), max|d| "
+        f"{max(r['tile_lod']['err'] for r in ranks):.3e}; one B1 launch a "
+        f"rank a frame; frame host wall flat "
+        f"{ranks[0]['tile_flat']['seconds'] * 1e3:.1f} / LOD "
+        f"{ranks[0]['tile_lod']['seconds'] * 1e3:.1f} ms (rank 0) [{smi}]")
+
+    # [17] K = 4 over two ranks
+    for r in ranks:
+        c = r["chunks"]
+        if (c["launches"] != [2, 2] or c["truncated"]
+                or not all(np.isfinite(c["loss"]))
+                or not all(x > 0 for x in c["n_split"])):
+            raise AssertionError(f"chunk-parallel in the Gloo world: {c}")
+    log(f"  [17] K = 4 chunks over two ranks: blocks "
+        f"{[r['chunks']['chunks'] for r in ranks]}, each chunk equal to its "
+        f"own train_step ({'bitwise' if chunk_res['bitwise'] else 'within tolerance'}"
+        f"), densify splits {[r['chunks']['n_split'] for r in ranks]}; "
+        f"step host wall {ranks[0]['chunks']['seconds'] * 1e3:.1f} / "
+        f"{ranks[1]['chunks']['seconds'] * 1e3:.1f} ms [{smi}]")
+
+    # [18] the pipeline
+    p = [r["pipeline"] for r in ranks]
+    if not p[0]["returned"] or p[1]["returned"]:
+        raise AssertionError(f"run_pipeline returned {p[0]['returned']} / "
+                             f"{p[1]['returned']} on ranks 0 / 1")
+    for q in p:
+        if q["trained"] != q["block"]:
+            raise AssertionError(f"a rank trained {q['trained']}, its block "
+                                 f"is {q['block']}")
+    if sorted(p[0]["block"] + p[1]["block"]) != sorted(
+            set(p[0]["block"] + p[1]["block"])):
+        raise AssertionError("the ranks' blocks overlap")
+    mp_bytes = open(os.path.join(root, "mp", "merged.dhier"), "rb").read()
+    one_bytes = open(os.path.join(root, "one", "merged.dhier"), "rb").read()
+    same = mp_bytes == one_bytes
+    d = dhier_io.load_dhier(os.path.join(root, "mp", "merged.dhier"))
+    log(f"  [18] run_pipeline over two ranks: rank 0 merged {len(d.nodes)} "
+        f"nodes, rank 1 returned None; blocks {p[0]['block']} / "
+        f"{p[1]['block']}, each rank trained exactly its block; merged.dhier "
+        f"byte-equal to the one-process run's: {same}; ranks "
+        f"{p[0]['seconds']:.1f} / {p[1]['seconds']:.1f} s host wall, "
+        f"{sum(q['launches'][0] for q in p)} B1 + "
+        f"{sum(q['launches'][1] for q in p)} B2 launches [{smi}]")
+    return dict(sums=sums, merged_equal=same, world_s=world_s,
+                pipe_s=max(q["seconds"] for q in p))
+
+
+def pipeline_one_phase(dev, smi, root):
+    """Phase 18's one-process reference run."""
+    import torch
+    scene_msg = (f"{len(PIPE_MP['centers'])} shells x {PIPE['per']} points "
+                 f"(the pipeline point's {len(PIPE_CENTERS)}), "
+                 f"{PIPE['width']}x{PIPE['width']}, steps coarse / chunk / "
+                 f"post {PIPE_MP['iters']} (phase [14]'s "
+                 f"{(PIPE['coarse_iters'], PIPE['chunk_iters'], PIPE['post_iters'])})")
+    log(f"[18] the multi-process pipeline: run_pipeline, {scene_msg}; "
+        "first in this process, while the Gloo world of phases [15]-[18] "
+        "runs on the same card")
+    t0 = time.perf_counter()
+    merged, ops = run_pipeline_mp(dev, os.path.join(root, "one"))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    log(f"  one process: {len(merged.nodes)} merged nodes in {one_s:.1f} s "
+        f"(scene and ground truth included) [{smi}]; ops without a "
+        f"deterministic form on this path: {ops or 'none'}")
+    return one_s
+
+
+def sibr_request(cam, template):
+    """The framed request a SIBR client sends for `cam`: its matrices with
+    the Y/Z flips that decode_camera undoes."""
+    wv = cam.world_view.cpu().numpy().astype(np.float64)
+    fp = cam.full_proj.cpu().numpy().astype(np.float64)
+    wv[:, 1:3] *= -1
+    fp[:, 1] *= -1
+    msg = dict(template, resolution_x=cam.width, resolution_y=cam.height,
+               fov_x=1.2, fov_y=0.8, view_matrix=list(wv.flatten()),
+               view_projection_matrix=list(fp.flatten()))
+    payload = json.dumps(msg).encode()
+    return len(payload).to_bytes(4, "little") + payload, msg
+
+
+def sibr_template():
+    raw = open(os.path.join(ROOT, "tests", "fixtures", "viewer",
+                            "sibr_request.bin"), "rb").read()
+    n = int.from_bytes(raw[:4], "little")
+    return json.loads(raw[4:4 + n]), raw[4 + n:]
+
+
+class SibrClient:
+    """A client on a thread: sends each request, reads its reply (the
+    image and the status JSON) and times it on its clock."""
+
+    def __init__(self, port, requests, keepalive, image_bytes):
+        import socket
+        import threading
+        self.sock = socket.create_connection(("127.0.0.1", port))
+        self.requests, self.keepalive = requests, keepalive
+        self.image_bytes = image_bytes
+        self.replies, self.ms, self.error = [], [], None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _recv(self, n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.sock.recv(min(n - len(buf), 1 << 22))
+            if not chunk:
+                raise ConnectionError("server closed")
+            buf += chunk
+        return bytes(buf)
+
+    def _run(self):
+        try:
+            for req in self.requests:
+                t0 = time.perf_counter()
+                self.sock.sendall(req)
+                img = self._recv(self.image_bytes)
+                n = int.from_bytes(self._recv(4), "little")
+                status = json.loads(self._recv(n))
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.replies.append((img, status))
+            if self.keepalive:
+                self.sock.sendall(self.keepalive)
+                self.replies.append(("keepalive",
+                                     int.from_bytes(self._recv(4), "little")))
+        except Exception as e:  # reported by the caller
+            self.error = e
+        finally:
+            self.sock.close()
+
+
+def viewer_phase(dev, smi, root):
+    """Phase 19: make_viewer on the LOD bench tree's .dhier, 30 SIBR
+    requests from a client thread, frame 1 held to an in-process render_lod,
+    B1 at the served frames held to its plain version, then the viewer
+    entry point in a subprocess."""
+    import argparse
+    import signal
+    import torch
+    from hlod_gaussians_torch import cli, render
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    from hlod_gaussians_torch.hierarchy import cut as cut_mod
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
+    from hlod_gaussians_torch.train.post import create_from_dhier
+    from hlod_gaussians_torch.viewer import maintenance as maint
+    from hlod_gaussians_torch.viewer.server import ViewerServer
+    kernel = rasterize_cuda.blend_forward
+    (w, h), frames = FRAME, VIEWER["frames"]
+    log(f"[19] viewer: make_viewer on the {2 * LOD_LEAVES - 1}-node LOD bench "
+        f"tree (SH 3) as a .dhier; {frames} SIBR requests at {w}x{h} along "
+        "lod_bench_camera's poses, then a resolution-0 keepalive")
+    _, tree, _, _ = lod_bench_tree(dev)
+    path = os.path.join(root, "viewer.dhier")
+    dhier_io.save_dhier(path, bench_dhier(tree))
+    del tree
+    args = argparse.Namespace(hierarchy=path, host="127.0.0.1", port=0,
+                              backend="pallas", occlusion_cull=False)
+    t0 = time.perf_counter()
+    srv, render_fn = cli.make_viewer(args, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    template, keepalive = sibr_template()
+    cams = [lod_bench_camera(i, w, h, dev) for i in range(frames)]
+    reqs = [sibr_request(c, template) for c in cams]
+    # the served frames' B1 inputs, the first and the last frame's, kept for
+    # the check against the plain version below: recorded at the C launch
+    # beneath the wrapper, which goes on counting its launches
+    served_b1, launch = [], rasterize_cuda.launch_blend_forward
+
+    def recording(feats, sorted_gid, tile_starts, tile_counts, *outs, **kw):
+        served_b1[min(len(served_b1), 1):] = [
+            ((feats, sorted_gid, tile_starts, tile_counts), kw)]
+        return launch(feats, sorted_gid, tile_starts, tile_counts, *outs,
+                      **kw)
+
+    kernel.launches = 0
+    client = SibrClient(srv.port, [r for r, _ in reqs], keepalive, w * h * 3)
+    served, deadline = 0, time.perf_counter() + 300.0
+    rasterize_cuda.launch_blend_forward = recording
+    try:
+        while served < frames + 1 and time.perf_counter() < deadline:
+            if srv.poll_once(render_fn) is None:
+                time.sleep(0.0005)
+            else:
+                served += 1
+        client.thread.join(60.0)
+    finally:
+        rasterize_cuda.launch_blend_forward = launch
+        srv.close()
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    if client.error is not None or len(client.replies) != frames + 1:
+        raise AssertionError(f"viewer: {len(client.replies)} replies, "
+                             f"error {client.error!r}")
+    for i, (img, status) in enumerate(client.replies[:frames]):
+        if len(img) != w * h * 3 or (
+                i > 0 and "Num_Rendered" not in status["train_params"]):
+            raise AssertionError(f"viewer reply {i}: {len(img)} bytes, "
+                                 f"status {status}")
+    if client.replies[-1] != ("keepalive", 0) or launches != frames:
+        raise AssertionError(f"viewer: keepalive {client.replies[-1]}, "
+                             f"{launches} B1 launches")
+
+    # B1 at the viewer's operating point (the bucket, 16x16 tiles, the LOD
+    # alpha, max_dup 2^20) against its plain version on the first and the
+    # last served frame's inputs; the last frame's launch and bound
+    bw, bh = cli._res_bucket(w, h)
+    b1_err = 0.0
+    for where, (fa, fopts) in zip(("first", "last"), served_b1):
+        fargs = tuple(a.detach() for a in fa)
+        got = kernel(*fargs, **fopts)
+        torch.cuda.synchronize()
+        ref = blend_forward_plain(*fargs, **fopts)
+        b1_err = max(b1_err, compare(
+            f"{where} viewer frame ({bw}x{bh}, 16x16 tiles)", got, ref,
+            FRAME_ATOL, FRAME_NC_SHARE))
+        del got, ref
+    evaluated, applied, cand, read = work_of_frame(
+        *fargs, bw, bh, fopts["tile_w"], fopts["tile_h"], fopts["t_eps"],
+        fopts["alpha_min"], use_lod=fopts["use_lod"])
+    n_bytes, n_read, n_rows = frame_bytes(fargs, read, bw, bh, 4 * 4 + 4 + 4)
+    b_ms, b_by, parts = bound(n_bytes, OPS_EVAL * evaluated
+                              + OPS_APPLY * applied + OPS_LOD * cand)
+    b1_frame = dict(ms=bare_launch_ms(fargs, fopts), bound_ms=b_ms,
+                    bound_by=b_by, entries=int(fargs[3].sum()))
+    log(f"  B1 at the last viewer frame ({b1_frame['entries']} entries, "
+        f"{n_read} read naming {n_rows} rows): launch {b1_frame['ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}; {parts}) [{smi}]")
+    del served_b1, fargs, fa
+
+    # frame 1 in process: the first frame's cut (two incremental steps from
+    # the roots at the controller's start target), render_lod at the
+    # window's bucket, sampled back to the window
+    d = dhier_io.load_dhier(path)
+    state = create_from_dhier(d, capacity=1 << int(np.ceil(np.log2(
+        d.pos.shape[0] + 1))), device=dev)
+    act = gm.activate(state)
+    cam, _ = ViewerServer.decode_camera(reqs[0][1])
+    max_scale = torch.max(act.scales, dim=-1).values
+    active = torch.as_tensor(maint.initial_cut(state.nodes, state.alive),
+                             device=dev)
+    target = maint.BudgetController(budget=1 << 19).target
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    for _ in range(2):
+        active, _, _ = maint.incremental_cut_step(
+            state.nodes, act.means3d, max_scale, state.alive, active,
+            f32(cam.campos), target)
+    pcache = cut_mod.build_parent_cache(state.nodes, act.means3d, max_scale)
+    itab = cut_mod.build_interp_table(
+        dict(means3d=act.means3d, scales=act.scales, quats=act.quats,
+             opacities=act.opacities, shs=act.shs), state.nodes)
+    with torch.no_grad():
+        out, _ = render.render_lod(
+            act.means3d, act.scales, act.quats, act.opacities, act.shs,
+            state.nodes, state.alive, f32(cam.world_view),
+            f32(cam.full_proj), f32(cam.campos), f32(cam.tan_fovx),
+            f32(cam.tan_fovy), torch.zeros(3, device=dev), target, None,
+            active, pcache, None, itab, sh_degree=3, width=bw, height=bh,
+            budget=1 << 19, cfg=dataclasses.replace(
+                bench_cfg(1 << 20), tile_w=16, tile_h=16))
+    img = torch.clamp(out.image, 0, 1).permute(1, 2, 0).cpu().numpy()
+    yi = np.clip((np.arange(h) * (bh / h)).astype(int), 0, bh - 1)
+    xi = np.clip((np.arange(w) * bw / w).astype(int), 0, bw - 1)
+    ref = (img[yi][:, xi] * 255).astype(np.uint8)
+    got = np.frombuffer(client.replies[0][0], np.uint8).reshape(h, w, 3)
+    n_diff = int((got != ref).any(-1).sum())
+    del state, act, active, out, pcache, itab
+    ms = client.ms
+    p50, p90 = statistics.median(ms), float(np.percentile(ms, 90))
+    n_rendered = [s["train_params"].get("Num_Rendered")
+                  for _, s in client.replies[1:frames]]
+    log(f"  setup (load, initial cut, parent cache, interp table) "
+        f"{setup_s:.2f} s; {frames} frames served at bucket {bw}x{bh}, "
+        f"{launches} B1 launches; frame latency on the client's clock p50 "
+        f"{p50:.2f} ms, p90 {p90:.2f} ms (PERF.md's ceiling 16.7 ms); "
+        f"Num_Rendered {n_rendered[0]} .. {n_rendered[-1]} [{smi}]")
+    log(f"  frame 1 vs an in-process render_lod at the same cut, bucket "
+        f"and sampling: {n_diff} pixels differ")
+    if n_diff:
+        raise AssertionError("the viewer's first frame differs from "
+                             "render_lod")
+
+    # the entry point itself, in a subprocess
+    cmd = [sys.executable, "-m", "hlod_gaussians_torch.cli", "viewer",
+           "--hierarchy", path, "--port", "0"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        port, output = _listening_port(proc, 300.0)
+        start_s = time.perf_counter() - t0
+        sub = SibrClient(port, [r for r, _ in reqs[:VIEWER["cli_requests"]]],
+                         None, w * h * 3)
+        sub.thread.join(120.0)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(60.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rest = "".join(output)
+    if (sub.error is not None or len(sub.replies) != VIEWER["cli_requests"]
+            or rc != 0):
+        raise AssertionError(f"viewer CLI: exit {rc}, {len(sub.replies)} "
+                             f"replies, error {sub.error!r}:\n{rest[-3000:]}")
+    log(f"  python -m hlod_gaussians_torch.cli viewer: listening after "
+        f"{start_s:.1f} s, served {len(sub.replies)} requests "
+        f"({', '.join(f'{x:.1f}' for x in sub.ms)} ms), exit {rc} on SIGINT "
+        f"[{smi}]")
+    return dict(launches=launches, p50=p50, p90=p90, b1_err=b1_err,
+                b1_frame=b1_frame)
+
+
+def _listening_port(proc, timeout):
+    """The port the viewer subprocess prints that it listens on, and the
+    list its output lines keep arriving in (a reader thread)."""
+    import queue
+    import threading
+    lines, seen = queue.Queue(), []
+
+    def read():
+        for x in iter(proc.stdout.readline, ""):
+            seen.append(x)
+            lines.put(x)
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        m = re.search(r"viewer listening on [\d.]+:(\d+)", line)
+        if m:
+            return int(m.group(1)), seen
+    raise AssertionError("the viewer CLI did not start:\n" + "".join(seen))
 
 
 def main():
@@ -2833,9 +3912,52 @@ def main():
     max_err = max(max_err, piper["b1_err"])
     b2_err = max(b2_err, piper["b2_err"])
     cli_phase(dev, smi)
+    torch.cuda.empty_cache()
 
-    # ---- 15. kernel table -------------------------------------------------
-    log(f"[15] done in {time.perf_counter() - t_start:.1f} s")
+    # ---- 15-19. scale-out and the viewer -----------------------------------
+    t_scale = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="scaleout_") as root:
+        try:
+            mesh = nccl_world(dev, root)
+            dpr = dp_phase(dev, smi, scene, mesh, root)
+            torch.cuda.empty_cache()
+            band = band_phase(dev, smi, scene)
+            max_err = max(max_err, band["b1_err"])
+            chunkr = chunk_phase(dev, smi)
+            torch.cuda.empty_cache()
+            world = GlooWorld(dev, root, chunkr["bitwise"])
+            pipeline_one_phase(dev, smi, root)
+            torch.cuda.empty_cache()
+            gloo = gloo_phases(dev, smi, root, world, chunkr)
+            viewr = viewer_phase(dev, smi, root)
+            max_err = max(max_err, viewr["b1_err"])
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+    log(f"  phases 15-19 in {time.perf_counter() - t_scale:.1f} s")
+    scale_b1 = dict(dp=dpr["launches"][0] + gloo["sums"]["dp"][0],
+                    chunk_parallel=(chunkr["launches"][0]
+                                    + gloo["sums"]["chunks"][0]),
+                    tile_parallel=(gloo["sums"]["tile_flat"][0]
+                                   + gloo["sums"]["tile_lod"][0]),
+                    pipeline_mp=gloo["sums"]["pipeline"][0],
+                    viewer=viewr["launches"])
+    scale_b2 = dict(dp=dpr["launches"][1] + gloo["sums"]["dp"][1],
+                    chunk_parallel=(chunkr["launches"][1]
+                                    + gloo["sums"]["chunks"][1]),
+                    tile_parallel=(gloo["sums"]["tile_flat"][1]
+                                   + gloo["sums"]["tile_lod"][1]),
+                    pipeline_mp=gloo["sums"]["pipeline"][1], viewer=0)
+    for path in ("dp", "chunk_parallel", "tile_parallel", "pipeline_mp",
+                 "viewer"):
+        if scale_b1[path] == 0:
+            raise AssertionError(f"path {path} launched no B1")
+    for path in ("dp", "chunk_parallel", "pipeline_mp"):
+        if scale_b2[path] == 0:
+            raise AssertionError(f"path {path} launched no B2")
+
+    # ---- 20. kernel table -------------------------------------------------
+    log(f"[20] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
@@ -2844,11 +3966,11 @@ def main():
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
         "launches": (flat_launches + lod_launches + train_launches
                      + sum(lodr["b1"].values()) + postr["b1"] + offr["b1"]
-                     + piper["b1"]),
+                     + piper["b1"] + sum(scale_b1.values())),
         "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
                                   "train": train_launches}, **lodr["b1"],
                                  post=postr["b1"], offload=offr["b1"],
-                                 pipeline=piper["b1"]),
+                                 pipeline=piper["b1"], **scale_b1),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2859,17 +3981,21 @@ def main():
         "post_frame": postr["b1_frame"],
         "offload_frame": offr["b1_frame"],
         "pipeline_frame": piper["b1_frame"],
+        "band_frame": {k: band[k] for k in ("band 0", "band 1",
+                                            "whole frame", "imbalance")},
+        "viewer_frame": viewr["b1_frame"],
     }, {
         "name": "blend_backward",
         "route": "cuda",
         "source": "hlod_gaussians_torch/csrc/blend_backward.cu",
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
         "launches": (flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values())
-                     + postr["b2"] + offr["b2"] + piper["b2"]),
+                     + postr["b2"] + offr["b2"] + piper["b2"]
+                     + sum(scale_b2.values())),
         "launches_by_path": dict({"flat": flat_b2, "lod": lod_b2,
                                   "train": train_b2}, **lodr["b2"],
                                  post=postr["b2"], offload=offr["b2"],
-                                 pipeline=piper["b2"]),
+                                 pipeline=piper["b2"], **scale_b2),
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,

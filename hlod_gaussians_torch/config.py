@@ -2,11 +2,9 @@
 hlod_gaussians_tpu/config.py:16-191).
 
 `ModelConfig`, `PipelineConfig`, `OptimizationConfig`, `RasterizerConfig`,
-`PostConfig` and the JSON pair `save_config` / `load_config` are ported;
-`MeshConfig` (multi-chip layout) is not yet, and `load_config` skips its
-entry in a file the JAX package wrote. The TPU-only `tpb` field (tiles per
-Pallas grid program) has no counterpart: the CUDA kernels run one block per
-tile.
+`PostConfig`, `MeshConfig` and the JSON pair `save_config` / `load_config`
+are ported. The TPU-only `tpb` field (tiles per Pallas grid program) has no
+counterpart: the CUDA kernels run one block per tile.
 """
 
 from __future__ import annotations
@@ -14,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +159,7 @@ def load_config(path: str, overrides: Optional[dict] = None) -> dict:
     define and fields a class does not have are skipped."""
     classes = {c.__name__: c for c in (ModelConfig, PipelineConfig,
                                        OptimizationConfig, RasterizerConfig,
-                                       PostConfig)}
+                                       PostConfig, MeshConfig)}
     with open(path) as f:
         raw = json.load(f)
     out = {}
@@ -174,3 +172,23 @@ def load_config(path: str, overrides: Optional[dict] = None) -> dict:
         fields = {f.name for f in dataclasses.fields(cls)}
         out[name] = cls(**{k: v for k, v in kv.items() if k in fields})
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh layout for multi-process training (JAX config.py
+    :194-212). The reference scales out with one SLURM job a chunk
+    (scripts/full_train.py:79-236); here chunks and views map onto the
+    `data` axis of a torch.distributed world and image bands (or a state's
+    rows) onto the `tile` axis. `parallel.data_parallel.make_mesh_from_config`
+    consumes it, axis names included; `parallel.tile_parallel` takes
+    `tile_axis` as its band axis."""
+
+    data_axis: str = "data"
+    tile_axis: str = "tile"
+    data: int = 1
+    tile: int = 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.tile)

@@ -7,8 +7,11 @@ a JAX `FlatTrainState`, so both packages take the same training step;
 `post_state_from_numpy` for a JAX `PostTrainState`; `forest_from_numpy`
 turns a JAX `SPTForest`'s arrays into this package's forest, and
 `packed_store_from_numpy` a JAX `PackedStore`'s matrix into this package's
-out-of-core store. Nothing here imports JAX: the caller does the
-`np.asarray`.
+out-of-core store. `stacked_train_state_from_numpy` takes a chunk-stacked
+JAX `FlatTrainState` (parallel/chunk_parallel.stack_states) and
+`sharded_train_state_from_numpy` one rank's rows of a gauss-sharded one
+(parallel/data_parallel.shard_train_state). Nothing here imports JAX: the
+caller does the `np.asarray`.
 """
 
 from __future__ import annotations
@@ -127,3 +130,42 @@ def packed_store_from_numpy(packed: np.ndarray, sh_degree: int,
     data = host_empty(packed.shape, device)
     data.numpy()[...] = packed
     return PackedStore(data, sh_degree, step=int(step))
+
+
+def stacked_train_state_from_numpy(arrays: Mapping, *, n_skybox: int,
+                                   n_scaffold: int = 0,
+                                   device=torch.device("cuda")
+                                   ) -> FlatTrainState:
+    """The numpy leaves of a chunk-stacked JAX FlatTrainState (each with a
+    leading chunk axis K, the steps [K]) -> this package's stacked state
+    (parallel/chunk_parallel: tensors with the leading K, steps as tuples
+    of K ints)."""
+    from hlod_gaussians_torch.parallel import chunk_parallel
+
+    steps = np.asarray(arrays["step"]).reshape(-1)
+
+    def pick(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+    return chunk_parallel.stack_states([
+        train_state_from_numpy(pick(arrays, i), n_skybox=n_skybox,
+                               n_scaffold=n_scaffold, device=device)
+        for i in range(steps.shape[0])])
+
+
+def sharded_train_state_from_numpy(arrays: Mapping, *, shard: int,
+                                   n_shards: int, n_skybox: int,
+                                   n_scaffold: int = 0,
+                                   device=torch.device("cuda")
+                                   ) -> FlatTrainState:
+    """Shard ``shard`` of ``n_shards`` (a rank's gauss coordinate) of a JAX
+    FlatTrainState whose capacity axis is sharded over `gauss` (the JAX
+    package's shard_train_state): the numpy leaves of the whole state, as
+    for train_state_from_numpy, -> that rank's rows, as
+    data_parallel.shard_train_state places them."""
+    from hlod_gaussians_torch.parallel import data_parallel
+
+    ts = train_state_from_numpy(arrays, n_skybox=n_skybox,
+                                n_scaffold=n_scaffold, device=device)
+    return data_parallel.shard_rows(ts, shard, n_shards)

@@ -7,10 +7,10 @@ One program, no subprocesses or filesystem barriers: each stage is a
 Python call around the training steps, on the card unless the caller passes
 another device. `run_pipeline` strings the stages together over a chunked
 scene and merges the chunk hierarchies into one `.dhier`;
-`run_pipeline_no_chunks` builds one hierarchy over the scaffold. The JAX
-package's multi-process branch (one block of chunks per process, process 0
-merging) is not ported: a `torch.distributed` world of more than one
-process is refused.
+`run_pipeline_no_chunks` builds one hierarchy over the scaffold. In a
+`torch.distributed` world of several processes `run_pipeline` trains one
+block of chunks a process and process 0 merges them from the shared output
+directory, as the JAX package's multi-process branch does.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from hlod_gaussians_torch.hierarchy import filter as flt
 from hlod_gaussians_torch.hierarchy import spt as spt_mod
 from hlod_gaussians_torch.models import gaussians as gm
 from hlod_gaussians_torch.models import reorder
+from hlod_gaussians_torch.parallel import distributed as pdist
 from hlod_gaussians_torch.pipeline import chunking, merge
 from hlod_gaussians_torch.train import coarse as coarse_mod
 from hlod_gaussians_torch.train import flat
@@ -316,15 +317,6 @@ def resolution_args(mcfg) -> tuple:
     return 1.0, 1600
 
 
-def _refuse_multi_process() -> None:
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "run_pipeline runs in one process: the multi-process branch "
-            "(chunk blocks per process, process 0 merging) waits for the "
-            "port of parallel/distributed (ROADMAP item 10)")
-
-
 def _sync(device) -> float:
     """Host clock after the device's queued work has finished."""
     if torch.device(device).type == "cuda":
@@ -365,8 +357,20 @@ def run_pipeline(
     device sync), and each chunk its trained rows, tree nodes and post
     capacity. Each chunk's training and
     post states are freed before the next chunk; only the scaffold lives
-    across chunks."""
-    _refuse_multi_process()
+    across chunks.
+
+    In a torch.distributed world of several processes (the reference's
+    SLURM job array, scripts/full_train.py:161-236, over a shared
+    filesystem) every rank trains the scaffold (same seed, same result) and
+    rank 0 alone writes scaffold.npz before the ranks meet; each rank then
+    trains its block of chunks (`distributed.process_chunk_assignment`) into
+    the shared ``output_dir``; after a barrier rank 0 loads every chunk's
+    hierarchy.dhier_opt in chunk order and merges, and the other ranks
+    return None. Each stage seeds its own draws (pcfg.seed, pcfg.seed + 1),
+    so a chunk's result does not depend on the rank that trains it."""
+    n_ranks = pdist.world_size()
+    if n_ranks > 1 and not output_dir:
+        raise ValueError("a multi-process pipeline needs a shared output_dir")
     mcfg = mcfg or ModelConfig()
     if mcfg.cap_max > 0:
         post = dataclasses.replace(post, max_cap=mcfg.cap_max)
@@ -392,10 +396,12 @@ def run_pipeline(
     # a pre-trained scaffold_file (reference --scaffold_file) skips it
     clock = _Clock(device, on=logger is not None)
     coarse_path = os.path.join(output_dir, "scaffold.npz") if output_dir else ""
+    resume = skip_if_exists and coarse_path and os.path.exists(coarse_path)
+    pdist.barrier()              # every rank looked before rank 0 writes
     if mcfg.scaffold_file:
         ts_coarse = ckpt.load_flat_state(mcfg.scaffold_file, device=device)
         source = "scaffold_file"
-    elif skip_if_exists and coarse_path and os.path.exists(coarse_path):
+    elif resume:
         ts_coarse = ckpt.load_flat_state(coarse_path, device=device)
         source = "resumed"
     else:
@@ -406,9 +412,13 @@ def run_pipeline(
             device=device)
         if coarse_path:
             clock.mark()
-            ckpt.save_flat_state(coarse_path, ts_coarse)
+            # one writer: the JAX package lets every process write the same
+            # path at once
+            if pdist.rank() == 0:
+                ckpt.save_flat_state(coarse_path, ts_coarse)
             clock.mark()
         source = "trained"
+    pdist.barrier()
     if logger:
         clock.mark()
         m = clock.marks
@@ -426,10 +436,16 @@ def run_pipeline(
                                  cameras=list(scene.train_cameras),
                                  point_mask=np.ones(len(scene.points), bool))]
 
+    mine = set(range(len(chunks)))
+    if n_ranks > 1:
+        mine = set(pdist.process_chunk_assignment(len(chunks)))
+
     info_to_idx = {id(ci): i for i, ci in enumerate(scene.train_cameras)}
     chunk_dhiers: List[DHier] = []
     centers = []
-    for chunk in chunks:
+    for chunk_i, chunk in enumerate(chunks):
+        if chunk_i not in mine:
+            continue
         cd = os.path.join(output_dir,
                           f"chunk_{chunk.index[0]}_{chunk.index[1]}") \
             if output_dir else ""
@@ -469,6 +485,20 @@ def run_pipeline(
                            message=f"{type(e).__name__}: {e}")
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
+
+    if n_ranks > 1:
+        pdist.barrier()                                  # "chunks_done"
+        if pdist.rank() != 0:
+            return None
+        # consolidate from the shared filesystem: every rank's chunks
+        chunk_dhiers, centers = [], []
+        for chunk in chunks:
+            hp = os.path.join(output_dir,
+                              f"chunk_{chunk.index[0]}_{chunk.index[1]}",
+                              "hierarchy.dhier_opt")
+            if os.path.exists(hp):
+                chunk_dhiers.append(dhier_io.load_dhier(hp))
+                centers.append(chunk.center)
 
     if not chunk_dhiers:
         raise RuntimeError(

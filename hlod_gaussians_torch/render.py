@@ -27,7 +27,7 @@ from hlod_gaussians_torch.config import RasterizerConfig
 from hlod_gaussians_torch.hierarchy import cut as cut_mod
 from hlod_gaussians_torch.models.gaussians import NODE_DEPTH, NODE_PARENT
 from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
-from hlod_gaussians_torch.ops.binning import bin_gaussians
+from hlod_gaussians_torch.ops.binning import bin_gaussians, tile_grid
 from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
 from hlod_gaussians_torch.ops.rasterize_xla import rasterize_scan
 
@@ -68,12 +68,16 @@ def render_arrays(
     antialiasing: bool = False,
     use_lod: bool = False,
     want_seen: bool = False,
+    band: Optional[tuple] = None,
 ) -> RenderResult:
     """Render activated Gaussian tensors into one view.
 
     ``want_seen`` makes the kernel path emit exact per-Gaussian applied
     flags (the CUDA `seen` buffer, forward.cu:568); the xla path always
-    does."""
+    does. ``band=(index, n)`` renders only band ``index`` of ``n``
+    horizontal bands of whole tile rows (tile-parallel rendering): the
+    per-pixel outputs are [band_h, W], band_h = (tile rows // n) * tile_h,
+    and the band's entries are capped at max_dup // n."""
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
 
@@ -89,28 +93,33 @@ def render_arrays(
     color = sh_ops.sh_color(sh_degree, shs, means3d, campos)
     invdepth_g = 1.0 / torch.clamp_min(proj.depth, 1e-6)
     ts_r, kids_r = (ts, kids) if use_lod else (None, None)
+    valid_b, height_b, max_dup = proj.valid, height, cfg.max_dup
+    if band is not None:
+        xy, valid_b, height_b = _band_local(xy, proj, band, width, height,
+                                            cfg)
+        max_dup = cfg.max_dup // band[1]
 
     if cfg.backend == "pallas":
         # tight alpha-aware coverage on the production path
         tight = cfg.tight_binning
         bins = bin_gaussians(
-            xy.detach(), proj.depth.detach(), proj.radius, proj.valid,
-            width, height, cfg.tile_w, cfg.tile_h, cfg.max_dup,
+            xy.detach(), proj.depth.detach(), proj.radius, valid_b,
+            width, height_b, cfg.tile_w, cfg.tile_h, max_dup,
             ext=proj.ext.detach() if tight else None,
             reff2=proj.reff2.detach() if tight else None)
         out = rasterize_tiles(
             bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
-            ts_r, kids_r, width=width, height=height, tile_w=cfg.tile_w,
+            ts_r, kids_r, width=width, height=height_b, tile_w=cfg.tile_w,
             tile_h=cfg.tile_h, t_eps=cfg.t_eps, alpha_min=cfg.alpha_min,
             want_seen=want_seen, inference=cfg.inference)
     elif cfg.backend == "xla":
         # the scan path keeps the reference's circle rects
         bins = bin_gaussians(
-            xy.detach(), proj.depth.detach(), proj.radius, proj.valid,
-            width, height, cfg.tile_w, cfg.tile_h, cfg.max_dup)
+            xy.detach(), proj.depth.detach(), proj.radius, valid_b,
+            width, height_b, cfg.tile_w, cfg.tile_h, max_dup)
         out = rasterize_scan(
             bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
-            ts_r, kids_r, width=width, height=height, tile_w=cfg.tile_w,
+            ts_r, kids_r, width=width, height=height_b, tile_w=cfg.tile_w,
             tile_h=cfg.tile_h, k_max=k_max, t_eps=cfg.t_eps,
             alpha_min=cfg.alpha_min)
     else:
@@ -120,6 +129,24 @@ def render_arrays(
         n_contrib=out.n_contrib, seen=out.seen, radii=proj.radius,
         visible=proj.valid, truncated=out.truncated,
         n_dup=bins.num_candidates)
+
+
+def _band_local(xy, proj, band, width, height, cfg):
+    """Band ``index`` of ``n``: the band-local screen positions (the band
+    starts at y = 0), the Gaussians that can touch the band and its
+    height. The band test uses the tight y half-extent where the binning
+    does (it holds every pixel the blend can touch), else the 3-sigma
+    radius; ext and reff2 are relative, so the shift leaves them valid."""
+    index, n = band
+    _, gh = tile_grid(width, height, cfg.tile_w, cfg.tile_h)
+    if gh % n:
+        raise ValueError(f"tile rows {gh} must divide over {n} bands")
+    band_h = (gh // n) * cfg.tile_h
+    xy = xy - torch.tensor([0.0, float(band_h * index)], device=xy.device)
+    tight = cfg.backend == "pallas" and cfg.tight_binning
+    r_y = proj.ext[:, 1] if tight else proj.radius.to(torch.float32)
+    in_band = ((xy[:, 1] + r_y) >= 0) & ((xy[:, 1] - r_y) < band_h)
+    return xy, proj.valid & in_band, band_h
 
 
 def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:

@@ -686,3 +686,217 @@ def test_cuda_run_pipeline_matches_cpu(cuda_device, tmp_path, monkeypatch):
             np.testing.assert_array_equal(
                 getattr(got.gaussians, k).cpu().numpy(),
                 getattr(ref.gaussians, k).numpy())
+
+
+def _dp_views(dev, n=2):
+    """n views of the offload toy scene, yawing, with seeded targets."""
+    cams = []
+    for a in np.linspace(-0.1, 0.1, n):
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        cams.append(make_camera(R, np.zeros(3), 0.9, 0.9, 48, 48,
+                                device=dev))
+    st = lambda k: torch.stack([torch.as_tensor(getattr(c, k)) for c in cams])
+    gts = np.random.default_rng(9).uniform(0, 1, (n, 3, 48, 48))
+    return (st("world_view"), st("full_proj"), st("campos"), st("tan_fovx"),
+            st("tan_fovy"), torch.as_tensor(gts.astype(np.float32),
+                                             device=dev))
+
+
+@pytest.mark.cuda
+def test_cuda_dp_train_step_matches_cpu(cuda_device):
+    """dp_train_step over two views in one process on the card (one B1 and
+    one B2 launch a view) against the same step on the CPU: the loss to
+    rtol 1e-5, Adam moments scaled to 3e-4, parameters to 1e-6 where the
+    gradient is large and within 2 lr elsewhere, denom and max_radii
+    exact."""
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.parallel import data_parallel as dp
+    from hlod_gaussians_torch.train import flat
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        state, _ = _offload_scene(dev)
+        ts = flat.init_flat_train(state)
+        launches = (rasterize_cuda.blend_forward.launches,
+                    rasterize_cuda.blend_backward.launches)
+        new, loss = dp.dp_train_step(
+            ts, *_dp_views(dev), torch.zeros(3, device=dev), [0, 0], 5.0,
+            cfg=RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                                 max_dup=1 << 14),
+            width=48, height=48, k_max=256, sh_degree=1)
+        n = 2 * int(dev.type == "cuda")
+        assert (rasterize_cuda.blend_forward.launches,
+                rasterize_cuda.blend_backward.launches) == (
+            launches[0] + n, launches[1] + n)
+        out.append((new, float(loss)))
+    (ref, ref_loss), (got, loss) = out
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    lrs = optim.param_lrs(OptimizationConfig(), 0, 5.0)
+    for k, m_ref in ref.adam.m.items():
+        r = m_ref
+        err = float((got.adam.m[k].cpu() - r).abs().max())
+        assert err <= GRAD_ATOL * max(float(r.abs().max()), 1e-30), k
+        big = r.abs() > 1e-3 * r.abs().max()
+        diff = (getattr(got.gaussians, k).cpu()
+                - getattr(ref.gaussians, k)).abs()
+        assert not big.any() or float(diff[big].max()) <= 1e-6, k
+        assert float(diff.max()) <= 2 * lrs[k] + 1e-6, k
+    assert torch.equal(got.denom.cpu(), ref.denom)
+    assert torch.equal(got.max_radii.cpu(), ref.max_radii)
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_parallel_step_equals_train_step(cuda_device):
+    """chunk_parallel_step of two chunks on the card equals each chunk's
+    own flat.train_step bitwise (the same kernels on the same inputs)."""
+    from hlod_gaussians_torch.parallel import chunk_parallel as cpar
+    from hlod_gaussians_torch.train import flat
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=1 << 14)
+    states = [flat.init_flat_train(_offload_scene(cuda_device, seed=s)[0])
+              for s in (3, 4)]
+    views = _dp_views(cuda_device)
+    kw = dict(width=48, height=48, k_max=256, sh_degree=1,
+              use_exposure=False, cfg=cfg)
+    bts, aux = cpar.chunk_parallel_step(
+        cpar.stack_states(states), *views, torch.zeros(3, device=cuda_device),
+        [0, 0], 5.0, **kw)
+    for i, ts in enumerate(cpar.unstack_states(bts)):
+        one, a = flat.train_step(
+            states[i], *(v[i] for v in views[:5]), views[5][i],
+            torch.zeros(3, device=cuda_device), exposure_idx=0,
+            scene_extent=5.0, **kw)
+        assert torch.equal(aux.loss[i], a.loss)
+        for k in ("xyz", "f_dc", "log_scale", "opacity_logit", "quat"):
+            assert torch.equal(getattr(ts.gaussians, k),
+                               getattr(one.gaussians, k)), k
+
+
+@pytest.mark.cuda
+def test_cuda_tile_parallel_gloo_world_matches_one_rank(cuda_device,
+                                                        tmp_path):
+    """render_tile_parallel and render_lod_tile_parallel in a Gloo world
+    of two ranks on the card (B1 on each band) against render_arrays and
+    render_lod_masked on one rank: n_selected equal, images to 2e-5."""
+    import json
+    import os
+    import sys
+    from hlod_gaussians_torch.hierarchy import build as hb
+    from hlod_gaussians_torch.hierarchy import cut as hc
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.parallel.dryrun import spawn_world
+    # by file: another installed package may own the name `tests`; the
+    # spawned ranks inherit this sys.path
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_worker as worker
+
+    state, cam = _offload_scene(torch.device("cpu"))
+    act = gm.activate(state)
+    z = {"flat/" + k: getattr(act, k).numpy() for k in
+         ("means3d", "scales", "quats", "opacities", "shs", "valid")}
+    rng = np.random.default_rng(21)
+    pts = rng.normal(size=(40, 3)).astype(np.float32) * 0.5
+    pts[:, 2] += 4.0
+    h = hb.build_hierarchy(
+        pts, np.full((40, 3), 0.05, np.float32),
+        np.tile(np.array([1, 0, 0, 0], np.float32), (40, 1)),
+        np.full((40,), 0.8, np.float32),
+        rng.random((40, 1, 3)).astype(np.float32) - 0.5,
+        device=torch.device("cpu"))
+    params = dict(means3d=h.pos, scales=h.scale, quats=h.quat,
+                  opacities=np.clip(h.opacity, 0, 1), shs=h.sh)
+    z.update({"lod/" + k: np.asarray(v, np.float32)
+              for k, v in params.items()})
+    z.update({"lod/nodes": h.nodes, "lod/alive": np.ones(len(h.nodes), bool),
+              "lod/target": np.float32(0.01)})
+    for pre in ("flat/", "lod/"):
+        for k, v in (("wv", cam.world_view), ("fp", cam.full_proj),
+                     ("campos", cam.campos), ("tfx", cam.tan_fovx),
+                     ("tfy", cam.tan_fovy)):
+            z[pre + k] = v.numpy()
+    # 6 tile rows of 8 pixels, 3 a band
+    cfg = dict(backend="pallas", tile_w=16, tile_h=8, max_dup=1 << 14)
+    z["spec"] = json.dumps(dict(tile_cfg=cfg, tile_wh=[48, 48]))
+    np.savez(tmp_path / "in.npz", **z)
+    launches = rasterize_cuda.blend_forward.launches
+    spawn_world(worker.run_tasks, 2, (["tiles"], str(tmp_path / "in.npz"),
+                                      str(tmp_path), "cuda"),
+                device=cuda_device, timeout_s=300.0, tmpdir=str(tmp_path))
+    t = lambda k: torch.as_tensor(z[k], device=cuda_device)
+    with torch.no_grad():
+        one = render.render_arrays(
+            *(t("flat/" + k) for k in ("means3d", "scales", "quats",
+                                       "opacities", "shs", "valid", "wv",
+                                       "fp", "campos", "tfx", "tfy")),
+            torch.zeros(3, device=cuda_device), sh_degree=1, width=48,
+            height=48, cfg=RasterizerConfig(**cfg))
+        lp = {k: t("lod/" + k) for k in params}
+        lod, n_sel = render.render_lod_masked(
+            *lp.values(), t("lod/nodes"), t("lod/alive"),
+            *(t("lod/" + k) for k in ("wv", "fp", "campos", "tfx", "tfy")),
+            torch.zeros(3, device=cuda_device), 0.01, None, None, None,
+            hc.build_interp_table(lp, t("lod/nodes")), sh_degree=0,
+            width=48, height=48, cfg=RasterizerConfig(**cfg),
+            use_frustum=False)
+    assert rasterize_cuda.blend_forward.launches == launches + 2
+    for r in range(2):
+        got = np.load(tmp_path / f"tiles_rank{r}.npz")
+        assert not bool(got["pallas/flat_trunc"])
+        np.testing.assert_allclose(got["pallas/flat"],
+                                   one.image.cpu().numpy(), atol=ATOL)
+        assert int(got["pallas/lod_n"]) == int(n_sel) > 0
+        np.testing.assert_allclose(got["pallas/lod"],
+                                   lod.image.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_viewer_frames_match_cpu(cuda_device, tmp_path):
+    """make_viewer's render_fn on the card against the same viewer on the
+    CPU, over the same requests (a plain view, the SPT colours, a
+    frozen cut): frames within 1 LSB, one B1 launch a frame."""
+    import argparse
+    from hlod_gaussians_torch import cli
+    from hlod_gaussians_torch.data import dhier
+    from hlod_gaussians_torch.hierarchy import build as hb
+    from hlod_gaussians_torch.viewer.server import ViewerServer
+
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(48, 3)).astype(np.float32) * 0.6
+    pts[:, 2] += 4.0
+    h = hb.build_hierarchy(
+        pts, np.exp(rng.normal(size=(48, 3)) * 0.3 - 2.2).astype(np.float32),
+        np.tile(np.array([1, 0, 0, 0], np.float32), (48, 1)),
+        rng.uniform(0.4, 0.9, 48).astype(np.float32),
+        (rng.random((48, 4, 3)).astype(np.float32) - 0.5) * 0.6,
+        device=torch.device("cpu"))
+    path = str(tmp_path / "t.dhier")
+    dhier.save_dhier(path, dhier.DHier(
+        sh_degree=1, pos=h.pos, quat=h.quat,
+        log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
+        opacity=np.clip(h.opacity, 1e-4, 1 - 1e-6).astype(np.float32),
+        shs=h.sh.astype(np.float32), nodes=h.nodes))
+    wv = np.eye(4)
+    wv[3, 2] = 0.0
+    proj = np.asarray(make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, 64, 48,
+                                  device=torch.device("cpu")).full_proj)
+    msgs = []
+    for sliders in ({}, {"render_SPTs": 1}, {"freeze_view": 1}):
+        m = dict(resolution_x=64, resolution_y=48, fov_x=0.9, fov_y=0.7,
+                 z_near=0.01, z_far=100.0, slider=sliders,
+                 view_matrix=list((wv * [1, -1, -1, 1]).flatten()),
+                 view_projection_matrix=list((proj * [1, -1, 1, 1])
+                                             .flatten()))
+        msgs.append(ViewerServer.decode_camera(m))
+    frames = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        args = argparse.Namespace(hierarchy=path, host="127.0.0.1", port=0,
+                                  backend="pallas", occlusion_cull=False)
+        srv, render_fn = cli.make_viewer(args, dev)
+        launches = rasterize_cuda.blend_forward.launches
+        frames[dev.type] = [render_fn(cam, opts) for cam, opts in msgs]
+        assert rasterize_cuda.blend_forward.launches == launches + (
+            len(msgs) if dev.type == "cuda" else 0)
+        srv.close()
+    for a, b in zip(frames["cuda"], frames["cpu"]):
+        assert a.shape == (48, 64, 3)
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1

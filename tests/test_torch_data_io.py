@@ -369,8 +369,10 @@ def test_configs_load_across_packages(tmp_path):
     assert ref["RasterizerConfig"] == jconfig.RasterizerConfig(tile_w=32)
     got = config.load_config(b, overrides={"OptimizationConfig":
                                            {"opacity_lr": 0.1}})
-    assert set(got) == {"ModelConfig", "OptimizationConfig"}
+    assert set(got) == {"ModelConfig", "OptimizationConfig", "MeshConfig"}
     assert got["ModelConfig"] == config.ModelConfig(images="img2")
+    assert got["MeshConfig"] == config.MeshConfig(data=2)
+    assert got["MeshConfig"].shape == jconfig.MeshConfig(data=2).shape
     assert got["OptimizationConfig"] == config.OptimizationConfig(
         feature_lr=0.01, opacity_lr=0.1)
     # each package reads its own file back
@@ -378,5 +380,6 @@ def test_configs_load_across_packages(tmp_path):
     assert mine["PostConfig"] == config.PostConfig(max_cap=123)
     assert mine["RasterizerConfig"] == config.RasterizerConfig(tile_w=32)
     for ours, theirs in ((config.ModelConfig, jconfig.ModelConfig),
-                         (config.PipelineConfig, jconfig.PipelineConfig)):
+                         (config.PipelineConfig, jconfig.PipelineConfig),
+                         (config.MeshConfig, jconfig.MeshConfig)):
         assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())

@@ -611,16 +611,6 @@ def test_run_pipeline_resume_and_keep_running(tmp_path, zero_iter_runs,
                            message="RuntimeError: made to fail")]
 
 
-def test_run_pipeline_refuses_a_multi_process_world(monkeypatch):
-    """The multi-process branch waits for parallel/distributed: a
-    torch.distributed world of two processes is refused, not run twice."""
-    _, (ts, _) = scene_pair()
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        port_run(ts, "", "")
-
-
 def test_run_pipeline_no_chunks_pretrained_matches_jax(tmp_path,
                                                       monkeypatch):
     """run_pipeline_no_chunks from a saved 3DGS PLY (mcfg.pretrained):
