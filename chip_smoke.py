@@ -4,9 +4,10 @@ GPU: builds the blend kernels, holds each to its plain PyTorch version,
 serves flat and hierarchical-LOD renders, takes flat training steps, and
 builds, streams, evaluates and maintains a full-size LOD tree,
 post-optimizes a 4M-node tree on the card and out of core from a pinned
-host store, runs the pipeline, scales out over torch.distributed worlds
-and serves the live viewer through the public entry points, and prints
-the kernel table.
+host store, runs the pipeline, scales out over torch.distributed worlds,
+serves the live viewer, runs the eval and create-hierarchy CLIs, LPIPS,
+the debug renders and the native loader through the public entry points,
+and prints the kernel table.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -153,7 +154,27 @@ Phases (any failure raises and exits non-zero):
      the client's clock; then
      `python -m hlod_gaussians_torch.cli viewer` in a subprocess serves 3
      requests and exits on SIGINT.
-  20. the {"kernels": [...]} line, then the device line.
+  20. the periphery on the phase-[6] tree: `cli.main(["create-hierarchy",
+     ...])` on the card and with --native from its 2^19 leaves written as
+     a PLY (both 1,048,575 nodes, proper, a .gdf each, the roots within
+     tests/test_native.py's bounds, the leaves equal as sets); a COLMAP
+     scene of 16 lod_bench_camera poses at 1920x1080 (4 test views,
+     loaded at 1600x900) whose images are the leaves' render; `eval --tau
+     --debug --lpips_weights` (seeded VGG16 weights) in process on the
+     .dhier and on the tree as an upstream .hier at tau 0 (capped by the
+     default 2^18 budget, the JAX package's warning) and the two smallest
+     of EVAL_CLI's taus the budget holds (the CLI's fixed max_dup of 2^19
+     entries truncates every level of this tree; the warning counts it):
+     finite PSNR / SSIM / GMSD / LPIPS, mean_rendered not rising, one B1
+     launch a level and view, the same node counts on both routes; the
+     entries the eval frame needs; the CLI in a subprocess at one
+     level; the debug renders at 1080p (the depth-0 slice equal to the
+     leaves' flat render, level slices falling from 524,288, one B1 launch
+     a render, gaussians_per_limit not rising); LPIPS on the card within
+     1e-4 of the CPU on a 256x256 crop and its 1080p time; the native
+     image loader against PIL; B1 at an eval frame against its plain
+     version, its launch and bound.
+  21. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -3542,6 +3563,481 @@ def _listening_port(proc, timeout):
     raise AssertionError("the viewer CLI did not start:\n" + "".join(seen))
 
 
+# ---- the periphery: phase 20 ----------------------------------------------
+# the eval CLI's scene: 16 of lod_bench_camera's poses at FRAME, 4 of them
+# named in test.txt (load_view caps a view at 1600 pixels wide, as the JAX
+# package's does, so the sweep renders 1600x900); the candidate taus from
+# which the two smallest that the CLI's default budget (2^18 nodes) and
+# max_dup (2^19 entries, 16x8 tiles) hold at every test view are taken,
+# beside tau 0, which the budget caps
+EVAL_CLI = dict(views=16, test=(1, 5, 9, 13),
+                taus=(3.0, 6.0, 15.0, 30.0, 60.0, 120.0, 240.0))
+DEBUG_LIMITS = (0.0, 0.001, 0.003, 0.01, 0.03, 0.1)
+# LPIPS on the card against the CPU on a 256x256 crop: float32 sums in
+# another order move the distance by ~1e-6 relative; TF32 convolutions
+# (10-bit mantissas) by ~1e-3. 1e-4 lies between
+LPIPS_CROP, LPIPS_RTOL = 256, 1e-4
+
+
+def lpips_npz(path, seed=0):
+    """A VGG16-shaped LPIPS weight set, He-scaled random values from
+    default_rng(seed) (no weights are downloaded)."""
+    from hlod_gaussians_torch.ops.lpips import TAPS, VGG16_CFG
+    rng = np.random.default_rng(seed)
+    out, cin, tap_ch = {}, 3, {}
+    for item in VGG16_CFG:
+        if item == "M":
+            continue
+        name, cout = item
+        out[f"{name}_w"] = rng.normal(0, np.sqrt(2.0 / (cin * 9)), (
+            cout, cin, 3, 3)).astype(np.float32)
+        out[f"{name}_b"] = rng.normal(0, 0.01, (cout,)).astype(np.float32)
+        tap_ch[name], cin = cout, cout
+    for i, t in enumerate(TAPS):
+        out[f"lin{i}_w"] = rng.uniform(0, 0.1, (1, tap_ch[t], 1, 1)).astype(
+            np.float32)
+    np.savez(path, **out)
+    return path
+
+
+def write_eval_scene(root, width, height, dev, state, cfg):
+    """The eval CLI's COLMAP scene in `root`: EVAL_CLI["views"] of
+    lod_bench_camera's poses as one PINHOLE camera of fov 1.2 x 0.8, the
+    leaves' flat render of each view as its PNG, test.txt naming
+    EVAL_CLI["test"]. Returns the image paths."""
+    import torch
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.data import colmap as cm
+    from hlod_gaussians_torch.models import gaussians as gm
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+    fx = width / (2.0 * np.tan(0.6))
+    fy = height / (2.0 * np.tan(0.4))
+    cm.write_cameras_bin(os.path.join(sparse, "cameras.bin"), {
+        1: cm.ColmapCamera(1, "PINHOLE", width, height,
+                           np.array([fx, fy, width / 2, height / 2]))})
+    act = gm.activate(state)
+    leaf = state.alive & (state.nodes[:, gm.NODE_CHILD_COUNT] == 0)
+    images, paths = {}, []
+    for i in range(EVAL_CLI["views"]):
+        cam = lod_bench_camera(i, width, height, dev)
+        a = 0.02 * i
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        name = f"view_{i:03d}.png"
+        images[i + 1] = cm.ColmapImage(
+            i + 1, cm.rotmat2qvec(R.T), np.zeros(3), 1, name,
+            np.zeros((0, 2)), np.zeros((0,), np.int64))
+        with torch.no_grad():
+            out = render.render_arrays(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                leaf, cam.world_view, cam.full_proj, cam.campos,
+                cam.tan_fovx, cam.tan_fovy, torch.zeros(3, device=dev),
+                sh_degree=state.sh_degree, width=width, height=height,
+                cfg=cfg)
+        if bool(out.truncated):
+            raise AssertionError(f"eval scene view {i}: truncated")
+        paths.append(os.path.join(root, "images", name))
+        write_png(paths[-1], torch.clamp(out.image, 0, 1).permute(
+            1, 2, 0).cpu().numpy())
+    cm.write_images_bin(os.path.join(sparse, "images.bin"), images)
+    pts = state.xyz[leaf][::512].cpu().numpy()
+    cm.write_points3d_bin(os.path.join(sparse, "points3D.bin"),
+                          cm.ColmapPoints(pts, np.full((len(pts), 3), 128,
+                                                       np.uint8),
+                                          np.zeros(len(pts), np.float32)))
+    with open(os.path.join(root, "test.txt"), "w") as f:
+        f.write("".join(f"view_{i:03d}\n" for i in EVAL_CLI["test"]))
+    return paths
+
+
+def eval_warnings(warns):
+    """eval_views' warnings -> {level: (truncated views, capped views)}."""
+    out = {}
+    for w in warns:
+        m = re.match(r"level ([-\d.e]+): (\d+) view\(s\) truncated .* and "
+                     r"(\d+) over the node budget", w)
+        if m:
+            out[float(m.group(1))] = (int(m.group(2)), int(m.group(3)))
+    return out
+
+
+def run_cli(argv):
+    """cli.main(argv) in this process -> (stdout, warnings, B1 and B2
+    launches, seconds); the counts start from 0."""
+    import contextlib
+    import io
+    import warnings
+
+    import torch
+    from hlod_gaussians_torch import cli
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    buf = io.StringIO()
+    kernel.launches = kernel_b2.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(buf):
+        warnings.simplefilter("always")
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return (buf.getvalue(), [str(w.message) for w in caught],
+            (kernel.launches, kernel_b2.launches), time.perf_counter() - t0)
+
+
+def b1_at_frame(captured, width, height, where, smi):
+    """B1 at one frame's captured inputs against its plain version (1e-4,
+    n_contrib exact): bare launch, wrapper, plain version and bound (with
+    the LOD alpha's operations when the frame has them) -> (numbers,
+    error)."""
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
+    import torch
+    kernel = rasterize_cuda.blend_forward
+    fa, fopts = captured
+    fargs = tuple(a.detach() for a in fa)
+    got = kernel(*fargs, **fopts)
+    torch.cuda.synchronize()
+    ref = blend_forward_plain(*fargs, **fopts)
+    err = compare(where, got, ref, FRAME_ATOL)
+    del got, ref
+    evaluated, applied, cand, read = work_of_frame(
+        *fargs, width, height, fopts["tile_w"], fopts["tile_h"],
+        fopts["t_eps"], fopts["alpha_min"], use_lod=fopts["use_lod"])
+    n_bytes, n_read, n_rows = frame_bytes(fargs, read, width, height,
+                                          4 * 4 + 4 + 4)
+    ops = OPS_EVAL * evaluated + OPS_APPLY * applied + (
+        OPS_LOD * cand if fopts["use_lod"] else 0)
+    b_ms, b_by, parts = bound(n_bytes, ops)
+    out = dict(ms=bare_launch_ms(fargs, fopts),
+               wrapper_ms=cuda_time_ms(lambda: kernel(*fargs, **fopts), 20,
+                                       warmup=3),
+               plain_ms=cuda_time_ms(lambda: blend_forward_plain(
+                   *fargs, **fopts), 2),
+               bound_ms=b_ms, bound_by=b_by, entries=int(fargs[3].sum()))
+    log(f"  B1 at the {where} ({width}x{height}, {fopts['tile_w']}x"
+        f"{fopts['tile_h']} tiles, LOD {fopts['use_lod']}): "
+        f"{out['entries']} entries ({n_read} read naming {n_rows} rows), "
+        f"{evaluated} evaluated, {cand} candidate and {applied} applied "
+        f"pairs; launch {out['ms']:.4f} ms, wrapper {out['wrapper_ms']:.4f} "
+        f"ms, plain version {out['plain_ms']:.2f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {parts}) [{smi}]")
+    return out, err
+
+
+def periphery_phase(dev, smi, root, dhier_path, width=None, height=None):
+    """Phase 20 on the phase-[6] tree (`dhier_path`, as phase [19] wrote
+    it): (a) create-hierarchy, port and native, from its leaves as a PLY;
+    (b) the eval CLI on the .dhier and on the tree as an upstream .hier,
+    and in a subprocess; (d) the debug renders; (c) LPIPS on the card on
+    two of them; (e) the native image loader; (f) B1 at an eval frame. Returns the B1
+    launches of the eval CLI and debug paths, B1's numbers at the eval
+    frame and the largest kernel-vs-plain error."""
+    import torch
+    from hlod_gaussians_torch import debug, native, render
+    from hlod_gaussians_torch.config import RasterizerConfig
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    from hlod_gaussians_torch.data import ply as ply_io
+    from hlod_gaussians_torch.data.scene import load_colmap_scene, load_view
+    from hlod_gaussians_torch.hierarchy import boxes as boxes_mod
+    from hlod_gaussians_torch.hierarchy import cut as cut_mod
+    from hlod_gaussians_torch.hierarchy.cut import sanity_check_hierarchy
+    from hlod_gaussians_torch.models import gaussians as gm
+    from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.lpips import make_lpips
+    from hlod_gaussians_torch.train.post import create_from_dhier
+    kernel = rasterize_cuda.blend_forward
+    kernel_b2 = rasterize_cuda.blend_backward
+    width, height = width or FRAME[0], height or FRAME[1]
+    t_phase = time.perf_counter()
+    d = dhier_io.load_dhier(dhier_path)
+    m = d.nodes.shape[0]
+    n_leaves = int((d.nodes[:, gm.NODE_CHILD_COUNT] == 0).sum())
+    out = os.path.join(root, "periphery")
+    os.makedirs(out)
+    log(f"[20] the periphery on the {m}-node LOD bench tree: "
+        "create-hierarchy, eval, LPIPS, debug, the native loader")
+
+    # ---- (a) create-hierarchy, the port's builder and the C++ creator ------
+    pts, scales, quats, ops, shs = lod_bench_leaves(n_leaves)
+    ply = os.path.join(out, "leaves.ply")
+    ply_io.save_gaussian_ply(ply, ply_io.GaussianPly(
+        xyz=pts, f_dc=shs[:, :1], f_rest=shs[:, 1:],
+        opacity=np.log(ops / (1.0 - ops)).astype(np.float32),
+        log_scale=np.log(scales).astype(np.float32), quat=quats))
+    trees = {}
+    for name, extra in (("port", []), ("native", ["--native"])):
+        path = os.path.join(out, f"{name}.dhier")
+        printed, _, launches, secs = run_cli(["create-hierarchy", ply, path]
+                                             + extra)
+        t = dhier_io.load_dhier(path)
+        sanity_check_hierarchy(t.nodes, np.ones(t.nodes.shape[0], bool))
+        gdf = os.path.splitext(path)[0] + ".gdf"
+        trees[name] = t
+        log(f"  create-hierarchy{' --native' if extra else ''}: "
+            f"{t.nodes.shape[0]} nodes in {secs:.2f} s (build, .dhier and "
+            f".gdf of {os.path.getsize(gdf)} bytes); {printed.strip()}")
+        if t.nodes.shape[0] != m or launches != (0, 0):
+            raise AssertionError(f"create-hierarchy {name}: "
+                                 f"{t.nodes.shape[0]} nodes, launches "
+                                 f"{launches}")
+    roots = {k: int(np.where(t.nodes[:, gm.NODE_PARENT] == -1)[0][0])
+             for k, t in trees.items()}
+    tp, tn = trees["port"], trees["native"]
+    rp, rn = roots["port"], roots["native"]
+    lex = lambda a: a[np.lexsort(a.T[::-1])]
+    leaf_sets = [lex(t.pos[t.nodes[:, gm.NODE_CHILD_COUNT] == 0])
+                 for t in (tp, tn)]
+    root_err = (float(np.abs(tp.pos[rp] - tn.pos[rn]).max()),
+                float(np.abs(np.sort(np.exp(tp.log_scale[rp]))
+                             / np.sort(np.exp(tn.log_scale[rn])) - 1).max()),
+                float(abs(tp.opacity[rp] / tn.opacity[rn] - 1)))
+    log(f"  roots: |d pos| {root_err[0]:.3e}, scales {root_err[1]:.3e} and "
+        f"opacity {root_err[2]:.3e} relative; leaf positions equal as sets "
+        f"{np.array_equal(leaf_sets[0], leaf_sets[1])}")
+    if (root_err[0] > 1e-3 or root_err[1] > 1e-2 or root_err[2] > 1e-2
+            or not np.array_equal(leaf_sets[0], leaf_sets[1])
+            or not np.array_equal(leaf_sets[0], lex(pts))):
+        raise AssertionError("the port's and the native creator's trees "
+                             "disagree")
+    del trees, tp, tn, leaf_sets
+
+    # ---- (b) the eval CLI -----------------------------------------------------
+    state = create_from_dhier(d, capacity=1 << int(np.ceil(np.log2(m + 1))),
+                              device=dev)
+    cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                           max_dup=1 << 21, tight_binning=True)
+    scene = os.path.join(out, "scene")
+    t0 = time.perf_counter()
+    png_paths = write_eval_scene(scene, width, height, dev, state, cfg)
+    scene_s = time.perf_counter() - t0
+    weights = lpips_npz(os.path.join(out, "lpips_vgg16.npz"))
+    cams = [load_view(c, device=dev) for c in
+            load_colmap_scene(scene, eval_split=True).test_cameras]
+    ew, eh = cams[0].width, cams[0].height
+    nb = boxes_mod.compute_node_boxes(
+        state.nodes.cpu().numpy(), state.xyz.cpu().numpy(),
+        np.exp(state.log_scale.cpu().numpy()).max(-1),
+        alive=state.alive.cpu().numpy())
+    boxes = tuple(torch.as_tensor(b, device=dev)
+                  for b in (nb.lo, nb.hi, nb.max_side))
+    eval_cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=8)
+    # the levels: the JAX package's protocol on the candidates; its warning
+    # names each level with a truncated (max_dup) or capped (budget) view
+    from hlod_gaussians_torch import eval as eval_mod
+    warned = []
+    probe = eval_mod.eval_views(state, cams, [c.image for c in cams],
+                                (0.0,) + EVAL_CLI["taus"], level_is_tau=True,
+                                boxes=boxes, cfg=eval_cfg, warn=warned.append)
+    degraded = eval_warnings(warned)
+    held = [t for t in EVAL_CLI["taus"] if degraded.get(t, (0, 0))[1] == 0]
+    log(f"  {len(png_paths)} views at {width}x{height} written in "
+        f"{scene_s:.1f} s; the test views load at {ew}x{eh}; (mean "
+        "rendered, truncated views, capped views) at the candidate taus "
+        + ", ".join(f"{r.level:g}: ({r.mean_rendered:.1f}, "
+                    f"{degraded.get(r.level, (0, 0))[0]}, "
+                    f"{degraded.get(r.level, (0, 0))[1]})" for r in probe))
+    if degraded.get(0.0, (0, 0))[1] != len(cams) or len(held) < 2:
+        raise AssertionError("no two candidate taus the default budget "
+                             "holds, or tau 0 not capped")
+    levels = [0.0] + held[:2]
+    del probe
+    argv = ["--tau", "--levels", ",".join(f"{x:g}" for x in levels),
+            "--lpips_weights", weights, "--debug", "-s", scene]
+    hier = os.path.join(out, "tree.hier")
+    t0 = time.perf_counter()
+    dhier_io.save_hier(hier, boxes_mod.dhier_to_upstream(d))
+    hier_s = time.perf_counter() - t0
+    routes = {}
+    for route, path in ((".dhier --tau", dhier_path), (".hier", hier)):
+        printed, warns, launches, secs = run_cli(
+            ["eval", "--hierarchy", path] + argv)
+        rows = [json.loads(x) for x in printed.splitlines()
+                if x.startswith("{")]
+        curve = [x for x in printed.splitlines() if x.startswith("[debug]")]
+        routes[route] = (rows, curve)
+        log(f"  eval {route}: {secs:.2f} s, B1 launches {launches[0]}, B2 "
+            f"{launches[1]}; {curve[0] if curve else 'no [debug] line'}")
+        for r in rows:
+            log(f"    tau {r['level']:g}: PSNR {r['psnr']}  SSIM "
+                f"{r['ssim']}  GMSD {r['gmsd']}  LPIPS {r['lpips']:.6f}  "
+                f"mean rendered {r['mean_rendered']}")
+        log(f"    warnings: {warns}")
+        rendered = [r["mean_rendered"] for r in rows]
+        capped = [lv for lv, (_, n) in eval_warnings(warns).items() if n]
+        finite = all(np.isfinite([r[k] for k in ("psnr", "ssim", "gmsd",
+                                                 "lpips")]).all()
+                     for r in rows)
+        if (len(rows) != len(levels) or not finite or len(curve) != 1
+                or any(a < b for a, b in zip(rendered, rendered[1:]))
+                or capped != [0.0]
+                or eval_warnings(warns)[0.0][1] != len(cams)
+                or launches != (len(levels) * len(cams), 0)):
+            raise AssertionError(f"eval {route}: rows {rows}, warnings "
+                                 f"{warns}, launches {launches}")
+    if routes[".dhier --tau"][1] != routes[".hier"][1] or [
+            r["mean_rendered"] for r in routes[".dhier --tau"][0]] != [
+            r["mean_rendered"] for r in routes[".hier"][0]]:
+        raise AssertionError("the .dhier and .hier routes select different "
+                             "node counts")
+    log(f"  the .hier written in {hier_s:.1f} s; both routes print the same "
+        "node counts")
+    eval_launches = len(levels) * len(cams) * 2
+    cmd = [sys.executable, "-m", "hlod_gaussians_torch.cli", "eval",
+           "--hierarchy", dhier_path, "-s", scene, "--tau", "--levels",
+           f"{levels[1]:g}"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    rows = [json.loads(x) for x in proc.stdout.splitlines()
+            if x.startswith("{")]
+    log(f"  python -m hlod_gaussians_torch.cli eval --levels {levels[1]:g}: "
+        f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s, "
+        f"{rows}")
+    if (proc.returncode != 0 or len(rows) != 1 or rows[0]["mean_rendered"]
+            != routes[".dhier --tau"][0][1]["mean_rendered"]):
+        raise AssertionError("the eval CLI subprocess failed:\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+
+    # ---- (d) debug --------------------------------------------------------------
+    cam = lod_bench_camera(0, width, height, dev)
+    act = gm.activate(state)
+    leaf = state.alive & (state.nodes[:, gm.NODE_CHILD_COUNT] == 0)
+    with torch.no_grad():
+        flat = torch.clamp(render.render_arrays(
+            act.means3d, act.scales, act.quats, act.opacities, act.shs, leaf,
+            cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+            cam.tan_fovy, torch.zeros(3, device=dev),
+            sh_degree=state.sh_degree, width=width, height=height,
+            cfg=cfg).image, 0, 1).cpu().numpy()
+    del act
+    kernel.launches = kernel_b2.launches = 0
+    t0 = time.perf_counter()
+    img0, n0 = debug.render_depth_slice(state, cam, 0, cfg=cfg)
+    slices = debug.render_level_slices(state, cam, cfg=cfg)
+    torch.cuda.synchronize()
+    debug_s = time.perf_counter() - t0
+    debug_launches = (kernel.launches, kernel_b2.launches)
+    curve = debug.gaussians_per_limit(state, cam.campos,
+                                      cam.world_view[:3, 2], DEBUG_LIMITS)
+    counts = [n for _, n in slices]
+    leaf0 = int(torch.nonzero(leaf)[0])
+    path = debug.path_to_root(state, leaf0)
+    top = int(torch.nonzero(state.nodes[:, gm.NODE_PARENT] == -1)[0])
+    kids = torch.nonzero(state.nodes[:, gm.NODE_PARENT] == top)[:, 0]
+    cols = debug.false_color_by_subtree(state, kids.tolist())
+    slice_err = float(np.abs(img0 - flat).max())
+    log(f"  debug at {width}x{height}: depth-0 slice {n0} nodes, "
+        f"max|d| {slice_err:.3e} from the leaves' flat render; level slices "
+        f"{counts}; gaussians_per_limit {list(DEBUG_LIMITS)}: {curve}; "
+        f"path_to_root of leaf {leaf0}: {path.shape[0]} points; "
+        f"false colours of {len(kids)} subtrees {cols.shape}; "
+        f"{debug_launches[0]} B1 launches for {1 + len(slices)} renders in "
+        f"{debug_s:.2f} s")
+    if (n0 != n_leaves or slice_err > FRAME_ATOL or counts[0] != n_leaves
+            or any(x <= y for x, y in zip(counts, counts[1:]))
+            or any(x < y for x, y in zip(curve, curve[1:]))
+            or path.shape[0] != int(state.nodes[leaf0, gm.NODE_DEPTH]) + 1
+            or debug_launches != (1 + len(slices), 0)
+            or not all(np.isfinite(x).all() for x, _ in slices)):
+        raise AssertionError("the debug renders disagree")
+
+    # ---- (c) LPIPS on the card: the leaves' render and their parents' -----
+    pair = [torch.as_tensor(x, device=dev) for x in (flat, slices[1][0])]
+    del slices, img0, flat
+    lp_card = make_lpips(weights, device=dev)
+    lp_cpu = make_lpips(weights, device=torch.device("cpu"))
+    y0, x0 = (height - LPIPS_CROP) // 2, (width - LPIPS_CROP) // 2
+    crop = [x[:, y0:y0 + LPIPS_CROP, x0:x0 + LPIPS_CROP] for x in pair]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    try:
+        on_card = float(lp_card(*crop))
+        on_cpu = float(lp_cpu(*(x.cpu() for x in crop)))
+        lp_hd = float(lp_card(*pair))
+        lp_ms = cuda_time_ms(lambda: lp_card(*pair), 5, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rel = abs(on_card / on_cpu - 1)
+    log(f"  LPIPS (seeded VGG16 weights), leaves vs parents at camera 0: "
+        f"{LPIPS_CROP}x{LPIPS_CROP} crop card {on_card:.8f} vs CPU "
+        f"{on_cpu:.8f} ({rel:.2e} relative, bound {LPIPS_RTOL:g}, "
+        f"cudnn.allow_tf32 on outside the call); {width}x{height} pair "
+        f"{lp_hd:.6f} in {lp_ms:.2f} ms [{smi}]")
+    if not rel <= LPIPS_RTOL or not np.isfinite(lp_hd):
+        raise AssertionError("LPIPS on the card disagrees with the CPU")
+    del lp_card, lp_cpu, pair, crop
+
+    # ---- (e) the native image loader ---------------------------------------------
+    loader = native.NativeImageLoader(png_paths, n_threads=8, max_width=0)
+    t0 = time.perf_counter()
+    loader.prefetch(list(range(len(png_paths))))
+    imgs = [loader.get(i) for i in range(len(png_paths))]
+    load_s = time.perf_counter() - t0
+    load_err = max(float(np.abs(x - loader._pil_get(i)).max())
+                   for i, x in enumerate(imgs))
+    library = loader.library
+    loader.close()
+    if library != "image_loader":
+        try:
+            native.build("image_loader")
+        except RuntimeError as e:
+            log("  the loader library does not build here: "
+                + " | ".join(x for x in str(e).splitlines()
+                             if "error" in x)[:300])
+    log(f"  NativeImageLoader: {len(imgs)} {width}x{height} PNGs in "
+        f"{load_s:.2f} s through {library} (libraries that build here: "
+        f"{native.native_available()}), max|d| from PIL {load_err:.1e}")
+    if load_err > 1e-6 or imgs[0].shape != (3, height, width):
+        raise AssertionError("the native loader disagrees with PIL")
+
+    # ---- (f) B1 at an eval frame ----------------------------------------------------
+    view = cams[0]
+    pcache = cut_mod.build_parent_cache_box(state.nodes, *boxes)
+    act = gm.activate(state)
+    itab = cut_mod.build_interp_table(
+        dict(means3d=act.means3d, scales=act.scales, quats=act.quats,
+             opacities=act.opacities, shs=act.shs), state.nodes)
+    target = max(float(render.tau_to_threshold(levels[1], float(
+        view.tan_fovx), ew)), 1e-12)
+
+    def eval_frame():
+        with torch.no_grad():
+            return render.render_lod(
+                act.means3d, act.scales, act.quats, act.opacities, act.shs,
+                state.nodes, state.alive, view.world_view, view.full_proj,
+                view.campos, view.tan_fovx, view.tan_fovy,
+                torch.zeros(3, device=dev), target, boxes, None, pcache,
+                None, itab, sh_degree=state.sh_degree, width=ew, height=eh,
+                budget=1 << 18, n_skybox=state.n_skybox, cfg=eval_cfg)
+
+    res, n_sel = eval_frame()
+    with torch.no_grad():
+        need = int(render.render_lod(
+            act.means3d, act.scales, act.quats, act.opacities, act.shs,
+            state.nodes, state.alive, view.world_view, view.full_proj,
+            view.campos, view.tan_fovx, view.tan_fovy,
+            torch.zeros(3, device=dev), target, boxes, None, pcache, None,
+            itab, sh_degree=state.sh_degree, width=ew, height=eh,
+            budget=1 << 18, n_skybox=state.n_skybox,
+            cfg=dataclasses.replace(eval_cfg, max_dup=1 << 24))[0].n_dup)
+    log(f"  the eval frame: {int(n_sel)} nodes, {int(res.n_dup)} entries "
+        f"kept of the {need} it needs (max_dup {eval_cfg.max_dup}), "
+        f"truncated {bool(res.truncated)}")
+    del res
+    b1, b1_err = b1_at_frame(capture_b1_inputs(eval_frame), ew, eh,
+                             f"eval frame (tau {levels[1]:g}, test view 0)",
+                             smi)
+    b1["tau"] = levels[1]
+    log(f"  phase [20] in {time.perf_counter() - t_phase:.1f} s")
+    return dict(b1={"eval_cli": eval_launches, "debug": debug_launches[0]},
+                b2={"eval_cli": 0, "debug": debug_launches[1]},
+                b1_frame=b1, b1_err=b1_err)
+
+
 def main():
     import torch
 
@@ -3931,10 +4427,15 @@ def main():
             gloo = gloo_phases(dev, smi, root, world, chunkr)
             viewr = viewer_phase(dev, smi, root)
             max_err = max(max_err, viewr["b1_err"])
+            scale_s = time.perf_counter() - t_scale
+            torch.cuda.empty_cache()
+            perir = periphery_phase(dev, smi, root,
+                                    os.path.join(root, "viewer.dhier"))
+            max_err = max(max_err, perir["b1_err"])
         finally:
             if torch.distributed.is_initialized():
                 torch.distributed.destroy_process_group()
-    log(f"  phases 15-19 in {time.perf_counter() - t_scale:.1f} s")
+    log(f"  phases 15-19 in {scale_s:.1f} s")
     scale_b1 = dict(dp=dpr["launches"][0] + gloo["sums"]["dp"][0],
                     chunk_parallel=(chunkr["launches"][0]
                                     + gloo["sums"]["chunks"][0]),
@@ -3948,16 +4449,18 @@ def main():
                     tile_parallel=(gloo["sums"]["tile_flat"][1]
                                    + gloo["sums"]["tile_lod"][1]),
                     pipeline_mp=gloo["sums"]["pipeline"][1], viewer=0)
+    scale_b1.update(perir["b1"])
+    scale_b2.update(perir["b2"])
     for path in ("dp", "chunk_parallel", "tile_parallel", "pipeline_mp",
-                 "viewer"):
+                 "viewer", "eval_cli", "debug"):
         if scale_b1[path] == 0:
             raise AssertionError(f"path {path} launched no B1")
     for path in ("dp", "chunk_parallel", "pipeline_mp"):
         if scale_b2[path] == 0:
             raise AssertionError(f"path {path} launched no B2")
 
-    # ---- 20. kernel table -------------------------------------------------
-    log(f"[20] done in {time.perf_counter() - t_start:.1f} s")
+    # ---- 21. kernel table -------------------------------------------------
+    log(f"[21] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
@@ -3984,6 +4487,7 @@ def main():
         "band_frame": {k: band[k] for k in ("band 0", "band 1",
                                             "whole frame", "imbalance")},
         "viewer_frame": viewr["b1_frame"],
+        "eval_frame": perir["b1_frame"],
     }, {
         "name": "blend_backward",
         "route": "cuda",

@@ -3,17 +3,21 @@
 The reference exposes its pipeline as a family of argparse scripts
 (scripts/full_train.py, train_*.py, hierarchy_viewer.py, ...). Here one
 `python -m hlod_gaussians_torch.cli <command>` front end drives the same
-stages through the library API, on the card. Ported so far: `full-train`
-and `viewer`, with the JAX package's flags and defaults; `--backend pallas`
-selects the CUDA blend kernels, `xla` the plain PyTorch path.
+stages through the library API, on the card: `full-train`, `eval`,
+`viewer` and `create-hierarchy`, with the JAX package's flags and defaults;
+`--backend pallas` selects the CUDA blend kernels, `xla` the plain PyTorch
+path.
 
     python -m hlod_gaussians_torch.cli full-train -s <colmap dir> -o <out>
+    python -m hlod_gaussians_torch.cli eval --hierarchy merged.dhier -s <dir>
     python -m hlod_gaussians_torch.cli viewer --hierarchy merged.dhier
+    python -m hlod_gaussians_torch.cli create-hierarchy in.ply out.dhier
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -55,6 +59,74 @@ def cmd_full_train(args):
         logger.close()
     print(f"merged hierarchy: {merged.nodes.shape[0]} nodes -> "
           f"{os.path.join(out_dir, 'merged.dhier')}")
+
+
+def cmd_eval(args, device=None):
+    """The granularity sweep on the test split (JAX cli.py:53-119): a .hier
+    cuts on its stored boxes; a .dhier with --tau on boxes built from the
+    tree; one JSON line a level."""
+    import numpy as np
+    import torch
+
+    from hlod_gaussians_torch import eval as eval_mod
+    from hlod_gaussians_torch.config import PipelineConfig, RasterizerConfig
+    from hlod_gaussians_torch.data import dhier as dhier_io
+    from hlod_gaussians_torch.data.scene import load_colmap_scene, load_view
+    from hlod_gaussians_torch.hierarchy import boxes as boxes_mod
+    from hlod_gaussians_torch.ops.lpips import make_lpips
+    from hlod_gaussians_torch.train import post as post_mod
+
+    device = torch.device("cuda") if device is None else torch.device(device)
+    boxes = None
+    if args.hierarchy.endswith(".hier"):
+        # upstream box-metric hierarchy: cut on projected box size
+        # (render_hierarchy.py protocol)
+        d, nb = boxes_mod.upstream_to_fork(dhier_io.load_hier(args.hierarchy))
+        cap = 1 << (int(np.ceil(np.log2(d.pos.shape[0] + 1))))
+        state = post_mod.create_from_dhier(d, capacity=cap, device=device)
+        pad = lambda a: np.concatenate(
+            [a, np.zeros((cap - a.shape[0],) + a.shape[1:], a.dtype)])
+        boxes = (pad(nb.lo), pad(nb.hi), pad(nb.max_side))
+    else:
+        d = dhier_io.load_dhier(args.hierarchy)
+        cap = 1 << (int(np.ceil(np.log2(d.pos.shape[0] + 1))))
+        state = post_mod.create_from_dhier(d, capacity=cap, device=device)
+        if args.tau:
+            # the tau protocol cuts on PROJECTED BOXES
+            # (render_hierarchy.py:56-80); a .dhier carries no boxes, so
+            # build them bottom-up from the tree (host numpy, as the JAX
+            # package does)
+            nb = boxes_mod.compute_node_boxes(
+                state.nodes.cpu().numpy(), state.xyz.cpu().numpy(),
+                np.exp(state.log_scale.cpu().numpy()).max(-1),
+                alive=state.alive.cpu().numpy())
+            boxes = (nb.lo, nb.hi, nb.max_side)
+    scene = load_colmap_scene(args.source_path, images_dir=args.images,
+                              eval_split=True)
+    cams = [load_view(ci, device=device)
+            for ci in scene.test_cameras[:args.max_views]]
+    gts = [c.image for c in cams]
+    levels = [float(x) for x in args.levels.split(",")]
+    pipe = PipelineConfig(antialiasing=args.antialiasing, debug=args.debug)
+    results = eval_mod.eval_views(
+        state, cams, gts, levels, level_is_tau=args.tau, boxes=boxes,
+        cfg=RasterizerConfig(backend=args.backend, tile_w=16, tile_h=8),
+        antialiasing=pipe.antialiasing,
+        lpips_fn=make_lpips(args.lpips_weights, device=device))
+    if pipe.debug:
+        # the per-limit node-count curve that localizes a bad cut before
+        # rendering is even attempted
+        from hlod_gaussians_torch import debug as debug_mod
+        cam0 = cams[0]
+        zdir = cam0.world_view[:3, 2]
+        curve = debug_mod.gaussians_per_limit(state, cam0.campos, zdir,
+                                              limits=levels)
+        print(f"[debug] nodes per level {levels}: {curve}")
+    for r in results:
+        print(json.dumps(dict(level=r.level, psnr=round(r.psnr, 3),
+                              ssim=round(r.ssim, 4), lpips=r.lpips,
+                              gmsd=round(r.gmsd, 5),
+                              mean_rendered=r.mean_rendered)))
 
 
 _RES_BUCKETS = ((256, 192), (512, 384), (800, 600), (1024, 768),
@@ -260,6 +332,44 @@ def cmd_viewer(args, device=None):
         srv.close()
 
 
+def cmd_create_hierarchy(args, device=None):
+    """Offline hierarchy build of a 3DGS .ply into a .dhier (JAX cli.py
+    :277-305): the port's builder on ``device`` (the card by default), or
+    the C++ creator with --native; the .gdf graph dump next to it."""
+    from hlod_gaussians_torch.data import dhier as dhier_io
+
+    if args.native:
+        from hlod_gaussians_torch.native import build_hierarchy_file
+        n = build_hierarchy_file(args.input, args.output)
+    else:
+        import numpy as np
+
+        from hlod_gaussians_torch.data import ply as ply_io
+        from hlod_gaussians_torch.hierarchy import build as hb
+
+        g = ply_io.load_gaussian_ply(args.input)
+        # exp and sigmoid in host numpy: the kd split follows the last bit
+        # of exp, and torch's differs from numpy's and XLA's
+        scales = np.exp(g.log_scale)
+        ops = 1.0 / (1.0 + np.exp(-g.opacity))
+        shs = np.concatenate([g.f_dc, g.f_rest], axis=1)
+        h = hb.build_hierarchy(g.xyz, scales, g.quat, ops, shs,
+                               device=device)
+        deg = {1: 0, 4: 1, 9: 2, 16: 3}[shs.shape[1]]
+        dhier_io.save_dhier(args.output, dhier_io.DHier(
+            sh_degree=deg, pos=h.pos, quat=h.quat,
+            log_scale=np.log(np.maximum(h.scale, 1e-12)).astype(np.float32),
+            opacity=np.clip(h.opacity, 1e-4, 1 - 1e-6).astype(np.float32),
+            shs=h.sh.astype(np.float32), nodes=h.nodes))
+        n = h.nodes.shape[0]
+    # graph dump next to the hierarchy, as the reference creator always
+    # does (mainHierarchyCreator.cpp:184)
+    d = dhier_io.load_dhier(args.output)
+    gdf = os.path.splitext(args.output)[0] + ".gdf"
+    dhier_io.save_gdf(gdf, d.nodes)
+    print(f"wrote {n} nodes -> {args.output} (+ {os.path.basename(gdf)})")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="hlod_gaussians_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -288,6 +398,23 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--max_dup_log2", type=int, default=21)
     t.set_defaults(fn=cmd_full_train)
 
+    e = sub.add_parser("eval", help="granularity sweep on the test split")
+    e.add_argument("--hierarchy", required=True)
+    e.add_argument("--source_path", "-s", required=True)
+    e.add_argument("--images", default="images")
+    e.add_argument("--levels", default="0,0.01,0.1")
+    e.add_argument("--tau", action="store_true",
+                   help="interpret levels as tau pixels")
+    e.add_argument("--max_views", type=int, default=50)
+    e.add_argument("--backend", default="pallas", choices=["pallas", "xla"],
+                   help="pallas: the CUDA blend kernels; xla: plain PyTorch")
+    e.add_argument("--lpips_weights", default=None)
+    e.add_argument("--antialiasing", action="store_true",
+                   help="EWA convolution AA (the alt-rasterizer variant)")
+    e.add_argument("--debug", action="store_true",
+                   help="print the per-level cut-size curve")
+    e.set_defaults(fn=cmd_eval)
+
     v = sub.add_parser("viewer", help="SIBR-compatible live view server")
     v.add_argument("--hierarchy", required=True)
     v.add_argument("--host", default="127.0.0.1")
@@ -298,6 +425,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="low-res visibility pre-pass culls the cut per "
                         "frame (reference hierarchy_viewer.py:280-282)")
     v.set_defaults(fn=cmd_viewer)
+
+    c = sub.add_parser("create-hierarchy", help="offline hierarchy build")
+    c.add_argument("input", help="3DGS .ply")
+    c.add_argument("output", help=".dhier path")
+    c.add_argument("--native", action="store_true",
+                   help="use the C++ creator")
+    c.set_defaults(fn=cmd_create_hierarchy)
     return p
 
 

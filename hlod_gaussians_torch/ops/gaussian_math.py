@@ -71,6 +71,27 @@ def _affine_cols(mx, my, mz, mat, j):
     return mx * mat[0, j] + my * mat[1, j] + mz * mat[2, j] + mat[3, j]
 
 
+def transform_points(points, mat4):
+    """Row-vector 4x4 transform with homogeneous divide: points [...,3],
+    mat4 [4,4] -> (projected xyz [...,3], w [...]). |w| < 1e-7 divides by
+    1e-7, so such rows stay finite."""
+    mx, my, mz = _cols(points, 3)
+    h0 = _affine_cols(mx, my, mz, mat4, 0)
+    h1 = _affine_cols(mx, my, mz, mat4, 1)
+    h2 = _affine_cols(mx, my, mz, mat4, 2)
+    w = _affine_cols(mx, my, mz, mat4, 3)
+    w_safe = torch.where(torch.abs(w) < 1e-7, torch.full_like(w, 1e-7), w)
+    inv_w = 1.0 / w_safe
+    return torch.stack([h0 * inv_w, h1 * inv_w, h2 * inv_w], dim=-1), w
+
+
+def transform_points_3x4(points, mat4):
+    """The affine part only (world -> view): [...,3]."""
+    mx, my, mz = _cols(points, 3)
+    return torch.stack([_affine_cols(mx, my, mz, mat4, j) for j in range(3)],
+                       dim=-1)
+
+
 def _cov2d_cols(t0, t1, t2, cov6_cols, viewmatrix,
                 focal_x, focal_y, tan_fovx, tan_fovy):
     """EWA 2D covariance (computeCov2D, forward.cu:141-176) from the
@@ -113,6 +134,19 @@ def _cov2d_cols(t0, t1, t2, cov6_cols, viewmatrix,
     cxy = j00 * j11 * b + j00 * j12 * c + j02 * j11 * e + j02 * j12 * f
     cyy = j11 * j11 * d + 2 * j11 * j12 * e + j12 * j12 * f
     return cxx, cxy, cyy
+
+
+def compute_cov2d(mean, cov6, viewmatrix, focal_x, focal_y, tan_fovx,
+                  tan_fovy):
+    """EWA 2D covariance of world-space means [...,3] and packed cov6
+    [...,6] -> (cxx, cxy, cyy) [...,3], WITHOUT the dilation term."""
+    mx, my, mz = _cols(mean, 3)
+    t0 = _affine_cols(mx, my, mz, viewmatrix, 0)
+    t1 = _affine_cols(mx, my, mz, viewmatrix, 1)
+    t2 = _affine_cols(mx, my, mz, viewmatrix, 2)
+    return torch.stack(_cov2d_cols(t0, t1, t2, _cols(cov6, 6), viewmatrix,
+                                   focal_x, focal_y, tan_fovx, tan_fovy),
+                       dim=-1)
 
 
 class Projection(NamedTuple):

@@ -23,6 +23,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh):
+    """SH DC coefficient -> color (reference SH2RGB)."""
+    return sh * C0 + 0.5
+
+
 def sh_basis(deg: int, x, y, z):
     """Real SH basis values at unit directions (x, y, z): list of K
     tensors, same polynomials and signs as forward.cu:25-76."""
@@ -42,6 +47,16 @@ def sh_basis(deg: int, x, y, z):
                       C3[5] * z * (xx - yy),
                       C3[6] * x * (xx - 3.0 * yy)]
     return b
+
+
+def eval_sh(deg: int, sh, dirs):
+    """SH [..., K, 3] (K >= NUM_COEFFS[deg]) at unit directions [..., 3]
+    -> raw colors [..., 3], with no +0.5 offset and no clamp (the
+    reference's eval_sh; `sh_color` is the rasterizer's form)."""
+    k = NUM_COEFFS[deg]
+    b = torch.stack(sh_basis(deg, dirs[..., 0], dirs[..., 1], dirs[..., 2]),
+                    dim=-1)
+    return torch.einsum("...k,...kc->...c", b, sh[..., :k, :])
 
 
 def sh_color(deg: int, sh, means, campos):

@@ -43,14 +43,14 @@ def _rank_entry(fn, rank, n, rendezvous, device, backend, timeout_s,
 
 
 def spawn_world(fn: Callable, n: int, args: Sequence = (), *,
-                device=torch.device("cpu"), backend: str = "gloo",
+                device=torch.device("cuda"), backend: str = "gloo",
                 timeout_s: float = 600.0, threads: int = 1,
                 tmpdir: str = None) -> None:
     """Run ``fn(rank, n, *args)`` in n spawned processes joined to one
-    ``backend`` world whose ranks run on ``device``. ``fn`` and ``args``
-    must pickle (a module-level function). Raises if a rank fails or the
-    world outlives ``timeout_s``; every process is ended before it
-    returns."""
+    ``backend`` world whose ranks run on ``device`` (the card by default).
+    ``fn`` and ``args`` must pickle (a module-level function). Raises if a
+    rank fails or the world outlives ``timeout_s``; every process is ended
+    before it returns."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -81,9 +81,10 @@ def spawn_world(fn: Callable, n: int, args: Sequence = (), *,
 
 
 def toy_inputs(n_pts=256, cap=512, width=64, height=64, sh_degree=1, seed=0,
-               device=torch.device("cpu")):
+               device=torch.device("cuda")):
     """The JAX dry run's toy scene (__graft_entry__._toy_inputs): n_pts
-    normal points at z = 4 and a camera at the origin."""
+    normal points at z = 4 and a camera at the origin, on ``device`` (the
+    card by default)."""
     from hlod_gaussians_torch.models import gaussians as gm
     from hlod_gaussians_torch.utils.camera import make_camera
 

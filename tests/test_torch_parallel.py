@@ -262,7 +262,7 @@ def _world(refs, n, tasks, name):
     out = d / name
     out.mkdir()
     spawn_world(worker.run_tasks, n, (tasks, inputs, str(out), "cpu"),
-                timeout_s=WORLD_TIMEOUT_S, tmpdir=str(d))
+                device="cpu", timeout_s=WORLD_TIMEOUT_S, tmpdir=str(d))
     return lambda tag, r: np.load(out / f"{tag}_rank{r}.npz")
 
 
@@ -613,7 +613,7 @@ def pipeline_runs(tmp_path_factory):
     out = d / "res"
     out.mkdir()
     spawn_world(worker.run_tasks, 2, (["pipeline"], inputs, str(out), "cpu"),
-                timeout_s=WORLD_TIMEOUT_S, tmpdir=str(d))
+                device="cpu", timeout_s=WORLD_TIMEOUT_S, tmpdir=str(d))
     return one, d, [np.load(out / f"pipeline_rank{r}.npz") for r in range(2)]
 
 

@@ -79,7 +79,7 @@ def lod_frames(tmp_path_factory):
     out = d / "w2"
     out.mkdir()
     spawn_world(worker.run_tasks, 2, (["tiles"], inputs, str(out), "cpu"),
-                timeout_s=WORLD_TIMEOUT_S, tmpdir=str(d))
+                device="cpu", timeout_s=WORLD_TIMEOUT_S, tmpdir=str(d))
     return z, ref, [np.load(out / f"tiles_rank{r}.npz") for r in range(2)]
 
 

@@ -472,5 +472,5 @@ def test_full_train_parser_matches_jax(argv, monkeypatch):
     assert t == j
     with pytest.raises(SystemExit):
         cli.main(["full-train", "-s", "x", "-o", "y", "--backend", "cuda"])
-    with pytest.raises(SystemExit):
-        cli.main(["eval", "--hierarchy", "h", "-s", "x"])
+    with pytest.raises(SystemExit):     # a subcommand neither CLI has
+        cli.main(["render", "--hierarchy", "h", "-s", "x"])
