@@ -7,7 +7,7 @@ post-optimizes a 4M-node tree on the card and out of core from a pinned
 host store, runs the pipeline, scales out over torch.distributed worlds,
 serves the live viewer, runs the eval and create-hierarchy CLIs, LPIPS,
 the debug renders and the native loader through the public entry points,
-and prints the kernel table.
+runs the benchmark bench_torch.py, and prints the kernel table.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -139,11 +139,11 @@ Phases (any failure raises and exits non-zero):
      train_step (bitwise, as two runs of one train_step are); in the Gloo
      world K = 4 over two ranks and chunk_parallel_densify.
   18. the multi-process pipeline: run_pipeline at PIPE_MP's cut of phase
-     [14]'s point (4 chunks, 20 / 30 / 10 steps) in this process and, at
-     the same time on the same card, over the Gloo ranks into one shared
-     directory: merged.dhier byte-equal (both under PyTorch's
-     deterministic algorithms), rank 1 returns None, each rank trains
-     exactly its block.
+     [14]'s point (4 chunks, 20 / 30 / 10 steps) twice in this process
+     and, at the same time on the same card, over the Gloo ranks into one
+     shared directory, all in PyTorch's default (non-deterministic) mode:
+     the three merged.dhier files byte-equal, rank 1 returns None, each
+     rank trains exactly its block.
   19. the viewer: cli.make_viewer on the phase-[6] tree saved as a .dhier;
      a client thread sends 30 SIBR requests at 1920x1080 along
      lod_bench_camera's poses and a keepalive: every reply's bytes and
@@ -174,7 +174,10 @@ Phases (any failure raises and exits non-zero):
      1e-4 of the CPU on a 256x256 crop and its 1080p time; the native
      image loader against PIL; B1 at an eval frame against its plain
      version, its launch and bound.
-  21. the {"kernels": [...]} line, then the device line.
+  21. the bench: `python3 bench_torch.py` (the twin of bench.py) in a
+     subprocess with the kernels phase [1] built, under a deadline: exit 0,
+     its last line bench.py's six keys with no null, B1 and B2 launched.
+  22. the {"kernels": [...]} line, then the device line.
 
 Without a CUDA device it exits 1 before printing any result.
 """
@@ -256,11 +259,9 @@ OFFLOAD_SPTS = 151
 # :53-137, PIPELINE_r05.json): 9 shells of 250,000 points on a 3x3 grid,
 # 512x512 views (72 train, 36 ring test, 4 orbit), coarse capacity 2^22,
 # chunk capacity 2^19, 16x16 tiles with max_dup 2^22 (2^23 for the ground
-# truth and the eval). Only the step counts are cut: coarse 600 -> 51,
-# chunk 1500 -> 51 (a loss is logged every 50 steps), post 800 -> 20 with a
-# round every 400 -> 10, one MCMC round a chunk as there. A step over 2^22
-# max_dup entries takes ~0.4 s on the card (the gradient reduction), so
-# the JAX run's 600 / 1500 / 800 would take hours
+# truth and the eval). Only the step counts are cut: 600 / 1500 / 800 ->
+# 60 / 200 / 100, a round every 400 -> 50, one MCMC round a chunk as
+# there; scripts/torch_pipeline_full_steps.py runs the JAX run's counts
 PIPE = dict(per=250_000, ring=12, width=512, coarse_capacity=1 << 22,
             chunk_capacity=1 << 19, max_dup=1 << 22, gt_max_dup=1 << 23,
             coarse_iters=60, chunk_iters=200, post_iters=100, post_densify=50,
@@ -2955,31 +2956,13 @@ def pipeline_mp_inputs(dev):
 
 
 def run_pipeline_mp(dev, out, logger=None):
-    """run_pipeline at PIPE_MP's point under PyTorch's deterministic
-    algorithms (warn-only; the ops without a deterministic form are
-    returned): without them the post stage's backward accumulates into
-    shared rows with atomics and two runs differ in the last bits, and
-    through the MCMC rounds in their node counts. -> (merged, warnings)."""
-    import warnings
-
-    import torch
+    """run_pipeline at PIPE_MP's point into `out`, in PyTorch's default
+    (non-deterministic) mode, as a user's full-train runs it."""
     from hlod_gaussians_torch.pipeline import full_train
     scene, (pcfg, opt, pconf, mcfg, cfg) = pipeline_mp_inputs(dev)
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            merged = full_train.run_pipeline(
-                scene, view_loader=lambda ci: ci.v, output_dir=out,
-                pcfg=pcfg, opt=opt, post=pconf, cfg=cfg, mcfg=mcfg,
-                logger=logger, device=dev)
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-    ops = sorted({str(w.message).split(" does not have")[0][:80]
-                  for w in caught if "deterministic" in str(w.message)})
-    return merged, ops
+    return full_train.run_pipeline(
+        scene, view_loader=lambda ci: ci.v, output_dir=out, pcfg=pcfg,
+        opt=opt, post=pconf, cfg=cfg, mcfg=mcfg, logger=logger, device=dev)
 
 
 class ListLogger:
@@ -3127,7 +3110,7 @@ def gloo_rank(rank, n, root, chunk_bitwise, device="cuda"):
                                   point_padding=pcfg.chunk_point_padding,
                                   min_n_cams=1, min_points=1)
     block_idx = pdist.process_chunk_assignment(len(chunks))
-    (merged, _), launches, sec = launched(lambda: run_pipeline_mp(
+    merged, launches, sec = launched(lambda: run_pipeline_mp(
         dev, os.path.join(root, "mp"), logger))
     trained = sorted({r["stage"] for r in logger.rows
                       if r["stage"].startswith("chunk(") and "n_rows" in r})
@@ -3259,16 +3242,21 @@ def gloo_phases(dev, smi, root, world, chunk_res):
     log(f"  [18] run_pipeline over two ranks: rank 0 merged {len(d.nodes)} "
         f"nodes, rank 1 returned None; blocks {p[0]['block']} / "
         f"{p[1]['block']}, each rank trained exactly its block; merged.dhier "
-        f"byte-equal to the one-process run's: {same}; ranks "
+        f"byte-equal to the one-process runs': {same}; ranks "
         f"{p[0]['seconds']:.1f} / {p[1]['seconds']:.1f} s host wall, "
         f"{sum(q['launches'][0] for q in p)} B1 + "
         f"{sum(q['launches'][1] for q in p)} B2 launches [{smi}]")
+    if not same:
+        raise AssertionError("the two-rank pipeline merged another tree than "
+                             "the one-process runs")
     return dict(sums=sums, merged_equal=same, world_s=world_s,
                 pipe_s=max(q["seconds"] for q in p))
 
 
 def pipeline_one_phase(dev, smi, root):
-    """Phase 18's one-process reference run."""
+    """Phase 18's one-process reference runs: run_pipeline twice in this
+    process in PyTorch's default mode, into root/one and root/one_again;
+    their merged.dhier files must be byte-equal."""
     import torch
     scene_msg = (f"{len(PIPE_MP['centers'])} shells x {PIPE['per']} points "
                  f"(the pipeline point's {len(PIPE_CENTERS)}), "
@@ -3276,16 +3264,26 @@ def pipeline_one_phase(dev, smi, root):
                  f"post {PIPE_MP['iters']} (phase [14]'s "
                  f"{(PIPE['coarse_iters'], PIPE['chunk_iters'], PIPE['post_iters'])})")
     log(f"[18] the multi-process pipeline: run_pipeline, {scene_msg}; "
-        "first in this process, while the Gloo world of phases [15]-[18] "
-        "runs on the same card")
-    t0 = time.perf_counter()
-    merged, ops = run_pipeline_mp(dev, os.path.join(root, "one"))
-    torch.cuda.synchronize()
-    one_s = time.perf_counter() - t0
-    log(f"  one process: {len(merged.nodes)} merged nodes in {one_s:.1f} s "
-        f"(scene and ground truth included) [{smi}]; ops without a "
-        f"deterministic form on this path: {ops or 'none'}")
-    return one_s
+        "twice in this process in PyTorch's default mode (deterministic "
+        "algorithms off), while the Gloo world of phases [15]-[18] runs on "
+        "the same card")
+    runs = []
+    for name in ("one", "one_again"):
+        t0 = time.perf_counter()
+        merged = run_pipeline_mp(dev, os.path.join(root, name))
+        torch.cuda.synchronize()
+        runs.append((len(merged.nodes), time.perf_counter() - t0))
+    same = (open(os.path.join(root, "one", "merged.dhier"), "rb").read()
+            == open(os.path.join(root, "one_again", "merged.dhier"),
+                    "rb").read())
+    log(f"  one process, twice: {runs[0][0]} / {runs[1][0]} merged nodes in "
+        f"{runs[0][1]:.1f} / {runs[1][1]:.1f} s (scene and ground truth "
+        f"included); merged.dhier byte-equal: {same}; deterministic "
+        f"algorithms {torch.are_deterministic_algorithms_enabled()} [{smi}]")
+    if not same or torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("two default-mode runs of run_pipeline merged "
+                             "different trees")
+    return runs
 
 
 def sibr_request(cam, template):
@@ -4038,6 +4036,38 @@ def periphery_phase(dev, smi, root, dhier_path, width=None, height=None):
                 b1_frame=b1, b1_err=b1_err)
 
 
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
+              "lod_stream_tau0_mpix_s", "lod_stream_tau15_mpix_s")
+BENCH_DEADLINE_S = 300
+
+
+def bench_phase(smi):
+    """[21] bench_torch.py in a subprocess on the card, reusing the kernels
+    phase [1] built: exit 0 and its last stdout line bench.py's six keys,
+    none null. Returns its (B1, B2) launches, which its last stderr note
+    counts."""
+    log("[21] bench_torch.py, the twin of bench.py, in a subprocess")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=BENCH_DEADLINE_S)
+    sec = time.perf_counter() - t0
+    for line in run.stderr.splitlines():
+        log("  " + line)
+    if run.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {run.returncode}")
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    if tuple(line) != BENCH_KEYS or any(line[k] is None for k in BENCH_KEYS):
+        raise AssertionError(f"bench_torch.py printed {line}")
+    counts = re.findall(r"kernel launches: B1 (\d+), B2 (\d+)", run.stderr)
+    launches = tuple(int(c) for c in counts[-1]) if counts else (0, 0)
+    log(f"  {json.dumps(line)}; B1 {launches[0]} and B2 {launches[1]} "
+        f"launches; {sec:.1f} s with the start [{smi}]")
+    if 0 in launches:
+        raise AssertionError(f"the bench launched B1 / B2 {launches} times")
+    return launches
+
+
 def main():
     import torch
 
@@ -4459,8 +4489,10 @@ def main():
         if scale_b2[path] == 0:
             raise AssertionError(f"path {path} launched no B2")
 
-    # ---- 21. kernel table -------------------------------------------------
-    log(f"[21] done in {time.perf_counter() - t_start:.1f} s")
+    bench_b1, bench_b2 = bench_phase(smi)
+
+    # ---- 22. kernel table -------------------------------------------------
+    log(f"[22] done in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "blend_forward",
@@ -4469,11 +4501,12 @@ def main():
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
         "launches": (flat_launches + lod_launches + train_launches
                      + sum(lodr["b1"].values()) + postr["b1"] + offr["b1"]
-                     + piper["b1"] + sum(scale_b1.values())),
+                     + piper["b1"] + sum(scale_b1.values()) + bench_b1),
         "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
                                   "train": train_launches}, **lodr["b1"],
                                  post=postr["b1"], offload=offr["b1"],
-                                 pipeline=piper["b1"], **scale_b1),
+                                 pipeline=piper["b1"], **scale_b1,
+                                 bench=bench_b1),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -4495,11 +4528,12 @@ def main():
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:1240",
         "launches": (flat_b2 + lod_b2 + train_b2 + sum(lodr["b2"].values())
                      + postr["b2"] + offr["b2"] + piper["b2"]
-                     + sum(scale_b2.values())),
+                     + sum(scale_b2.values()) + bench_b2),
         "launches_by_path": dict({"flat": flat_b2, "lod": lod_b2,
                                   "train": train_b2}, **lodr["b2"],
                                  post=postr["b2"], offload=offr["b2"],
-                                 pipeline=piper["b2"], **scale_b2),
+                                 pipeline=piper["b2"], **scale_b2,
+                                 bench=bench_b2),
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,

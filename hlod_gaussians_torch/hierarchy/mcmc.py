@@ -84,10 +84,24 @@ def _update_params(state: GaussianState, idxs, n) -> dict:
 
 def sample_hosts(probs, k: int, generator: Optional[torch.Generator] = None):
     """k row indices ~ probs, with replacement (reference _sample_alives,
-    gaussian_model.py:1580-1586). All-zero probs draw uniformly: the
-    callers then use none of the draws."""
-    safe = torch.where(torch.sum(probs) > 0, probs, torch.ones_like(probs))
-    return torch.multinomial(safe, k, replacement=True, generator=generator)
+    gaussian_model.py:1580-1586): the inverse of the distribution's CDF at
+    k uniform draws. All-zero probs draw uniformly: the callers then use
+    none of the draws.
+
+    The CDF is summed in 52-bit fixed point. An integer prefix sum is
+    exact in any order, so the draws are the same on every run; the float
+    prefix sum inside torch.multinomial on CUDA (a decoupled look-back
+    scan) rounds differently from run to run, which moved some draws and,
+    through the MCMC rounds, the trees the pipeline built."""
+    p = probs.to(torch.float64)
+    total = torch.sum(p)
+    p = torch.where(total > 0, p / total, torch.full_like(p, 1.0 / p.shape[0]))
+    cdf = torch.cumsum(torch.floor(p * 2.0 ** 52).to(torch.int64), 0)
+    u = torch.rand((k,), dtype=torch.float64, generator=generator,
+                   device=probs.device)
+    ticks = torch.minimum((u * cdf[-1].to(torch.float64)).to(torch.int64),
+                          cdf[-1] - 1)
+    return torch.searchsorted(cdf, ticks, right=True)
 
 
 def _counts(sampled, cap: int):

@@ -3,8 +3,11 @@ PyTorch versions on the card, and the differentiable kernel path against
 the same render on the CPU, the post-optimization slice (SPT cuts, MCMC
 relocation and growth, one post step) on the card against the CPU, and
 the out-of-core trainer (pinned host store, device-resident row cache
-with and without prefetch) on the card against the CPU, and a tiny
-run_pipeline on the card against the same run on the CPU. Every
+with and without prefetch) on the card against the CPU, a tiny
+run_pipeline on the card against the same run on the CPU, the train and
+post steps and an MCMC round repeated bitwise in PyTorch's default mode,
+GMSD at 1080p against the CPU under the default cuDNN TF32 setting, and
+bench_torch.py's full-size step. Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -900,3 +903,149 @@ def test_cuda_viewer_frames_match_cpu(cuda_device, tmp_path):
     for a, b in zip(frames["cuda"], frames["cpu"]):
         assert a.shape == (48, 64, 3)
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_gmsd_matches_cpu_under_default_tf32(cuda_device):
+    """GMSD of a seeded 1920x1080 pair on the card, under PyTorch's
+    default cuDNN settings (allow_tf32 on, as a user's `eval` runs),
+    against the CPU within 1e-5: the bound at which the CPU port holds to
+    the JAX package (tests/test_torch_eval_viewer.py)."""
+    from hlod_gaussians_torch.ops.perceptual import gmsd
+    rng = np.random.default_rng(3)
+    a = rng.random((3, 1080, 1920)).astype(np.float32)
+    b = np.clip(a + rng.normal(size=a.shape).astype(np.float32) * 0.05, 0,
+                1)
+    cudnn = torch.backends.cudnn
+    for x, y in ((a, b), (a, a)):
+        ref = float(gmsd(torch.as_tensor(x), torch.as_tensor(y)))
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                         allow_tf32=True):
+            got = float(gmsd(torch.as_tensor(x, device=cuda_device),
+                             torch.as_tensor(y, device=cuda_device)))
+        assert abs(got - ref) <= 1e-5, (got, ref)
+
+
+def _bench_flat_state(dev, stride=4):
+    """Every stride-th Gaussian of the bench scene as a flat train state."""
+    import bench_torch
+    from hlod_gaussians_torch import convert
+    from hlod_gaussians_torch.train import flat
+    scene = {k: v[::stride] for k, v in bench_torch.bench_scene(
+        100_000).items()}
+    n = scene["xyz"].shape[0]
+    arrays = dict(scene, exposure=np.eye(3, 4, dtype=np.float32)[None],
+                  alive=np.ones(n, bool), nodes=np.full((n, 6), -1, np.int32))
+    return flat.init_flat_train(convert.state_from_numpy(
+        arrays, n_skybox=0, device=dev))
+
+
+def _states_equal(a, b, fields):
+    return {k: torch.equal(getattr(a, k), getattr(b, k)) for k in fields}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["post", "flat"])
+def test_cuda_steps_are_repeatable_in_default_mode(step, cuda_device):
+    """Two post_train_step (flat.train_step) calls from identical inputs on
+    the card, in PyTorch's default mode (no deterministic algorithms, cuDNN
+    free to choose): bitwise-equal losses, images, parameters and Adam
+    moments. B2 uses no atomics and the per-Gaussian reduction is segment
+    sums of sorted entries."""
+    from hlod_gaussians_torch.train import flat, post
+    assert not torch.are_deterministic_algorithms_enabled()
+    bg = torch.zeros(3, device=cuda_device)
+    if step == "post":
+        state, _, cam, cut, pcfg = _post_scene(cuda_device, n=4000,
+                                               cap=1 << 13)
+        ts = post.init_post_train(dataclasses.replace(
+            state, f_dc=state.f_dc + 0.2))
+        gt = torch.as_tensor(np.random.default_rng(8).uniform(
+            0, 1, (3, H, W)).astype(np.float32), device=cuda_device)
+
+        def run():
+            return post.post_train_step(
+                ts, cut.gaussian_mask, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, gt, bg, 3.0,
+                post=pcfg, cfg=RasterizerConfig(tile_w=16, tile_h=16,
+                                                max_dup=1 << 16),
+                width=W, height=H)
+    else:
+        ts = _bench_flat_state(cuda_device)
+        cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, 1920, 1080,
+                          device=cuda_device)
+        gt = torch.as_tensor(np.random.default_rng(8).uniform(
+            0, 1, (3, 1080, 1920)).astype(np.float32), device=cuda_device)
+
+        def run():
+            return flat.train_step(
+                ts, cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+                cam.tan_fovy, gt, bg, exposure_idx=0, scene_extent=8.0,
+                cfg=RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                                     max_dup=352 * 1024, tight_binning=True),
+                width=1920, height=1080, sh_degree=3)
+    (a, aux_a), (b, aux_b) = run(), run()
+    assert not bool(aux_a.truncated)
+    assert torch.equal(aux_a.loss, aux_b.loss)
+    assert torch.equal(aux_a.image, aux_b.image)
+    fields = list(a.gaussians.params())
+    assert all(_states_equal(a.gaussians, b.gaussians, fields).values())
+    for part in ("m", "v"):
+        for k, v in getattr(a.adam, part).items():
+            assert torch.equal(v, getattr(b.adam, part)[k]), (part, k)
+
+
+@pytest.mark.cuda
+def test_cuda_mcmc_round_is_repeatable_in_default_mode(cuda_device):
+    """sample_hosts over 2^22 rows, twice from one seed, draws the same
+    rows (its CDF is an integer prefix sum; torch.multinomial's float scan
+    on CUDA is not repeatable), and densify_round, grow and relocate, twice
+    from one state and seed gives bitwise-equal trees and parameters."""
+    from hlod_gaussians_torch.hierarchy import mcmc
+    from hlod_gaussians_torch.models.gaussians import NODE_CHILD_COUNT
+    from hlod_gaussians_torch.train import post
+    probs = torch.rand((1 << 22,), generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device) ** 4
+    draws = [mcmc.sample_hosts(probs, 8192, torch.Generator(
+        device=cuda_device).manual_seed(0)) for _ in range(2)]
+    assert torch.equal(draws[0], draws[1])
+
+    state, _, _, _, pcfg = _post_scene(cuda_device, n=4000, cap=1 << 13)
+    leaf = torch.nonzero((state.nodes[:, NODE_CHILD_COUNT] == 0)
+                         & state.alive)[:, 0]
+    logit = state.opacity_logit.clone()
+    logit[leaf[::11]] = -7.0                                  # dead leaves
+    ts = post.init_post_train(dataclasses.replace(state,
+                                                  opacity_logit=logit))
+    pcfg = dataclasses.replace(pcfg, grow_fraction=0.05)
+    out = [post.densify_round(ts, torch.Generator(
+        device=cuda_device).manual_seed(1), post=pcfg, budget=512)
+        for _ in range(2)]
+    (a, sa), (b, sb) = out
+    assert int(sa["n_added_pairs"]) > 0 and int(sa["n_relocated"]) > 0
+    assert all(int(sa[k]) == int(sb[k]) for k in sa)
+    fields = list(a.gaussians.params()) + ["nodes", "alive"]
+    assert all(_states_equal(a.gaussians, b.gaussians, fields).values())
+
+
+@pytest.mark.cuda
+def test_cuda_bench_step_is_untruncated(cuda_device):
+    """bench_torch.py's step at its full size (1920x1080, the 100k-Gaussian
+    bench scene, max_dup 352*1024) renders without truncation, and one
+    step launches B1 and B2 once each and gives finite gradients."""
+    import bench_torch
+    leaves, render_fn = bench_torch.bench_step(
+        cuda_device, width=1920, height=1080, n_pts=100_000,
+        max_dup=352 * 1024)
+    with torch.no_grad():
+        out = render_fn(*leaves)
+    assert not bool(out.truncated)
+    assert tuple(out.image.shape) == (3, 1080, 1920)
+    launches = (rasterize_cuda.blend_forward.launches,
+                rasterize_cuda.blend_backward.launches)
+    loss, grads = bench_torch.step_grads(render_fn, leaves)
+    assert (rasterize_cuda.blend_forward.launches,
+            rasterize_cuda.blend_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert np.isfinite(float(loss.detach()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

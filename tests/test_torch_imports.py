@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of hlod_gaussians_torch, and
-neither chip_smoke.py nor scripts/torch_frame_profile.py, imports jax or
-hlod_gaussians_tpu — checked by an AST scan of the sources and by importing
+none of chip_smoke.py, bench_torch.py and scripts/torch_frame_profile.py,
+imports jax or hlod_gaussians_tpu — checked by an AST scan of the sources and by importing
 every module in a fresh interpreter and reading its sys.modules."""
 
 import ast
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "hlod_gaussians_tpu")
 
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_frame_profile.py"]
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+        ROOT / "scripts" / "torch_frame_profile.py"]
 
 
 def _modules():

@@ -317,3 +317,25 @@ def test_add_new_gs_own_draws():
     o_child = torch.sigmoid(tg2.opacity_logit[nodes[hosts, 3], 0])
     expect = torch.clamp(1.0 - torch.sqrt(1.0 - o_host), min=0.005)
     torch.testing.assert_close(o_child, expect, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [1000, 200_000])
+def test_sample_hosts_equals_multinomial_in_float64(rows):
+    """sample_hosts inverts the CDF at torch.rand's float64 uniforms, the
+    draws torch.multinomial makes on the CPU: it draws what multinomial of
+    the float64 probabilities draws, draw for draw (multinomial of float32
+    probabilities sums its CDF in float32 and moves draws that fall near a
+    boundary). Rows of probability 0 are never drawn; all-zero
+    probabilities draw uniformly."""
+    gen = torch.Generator().manual_seed(rows)
+    probs = torch.rand((rows,), generator=gen) ** 2
+    probs[torch.rand((rows,), generator=gen) < 0.3] = 0.0
+    new = mcmc.sample_hosts(probs, 8192, torch.Generator().manual_seed(1))
+    old = torch.multinomial(probs.double(), 8192, replacement=True,
+                            generator=torch.Generator().manual_seed(1))
+    assert torch.equal(new, old)
+    assert bool((probs[new] > 0).all())
+    flat = mcmc.sample_hosts(torch.zeros(4), 4000,
+                             torch.Generator().manual_seed(2))
+    counts = torch.bincount(flat, minlength=4)
+    assert counts.shape == (4,) and int(counts.min()) > 800
