@@ -116,7 +116,8 @@ Phases (any failure raises and exits non-zero):
      inside their trees, the merged tree proper; a resume that touches no
      artifact and writes a byte-equal merge; B1 and B2 against their plain
      versions at a chunk-training frame; the tau sweep on the merged tree
-     (mean_rendered falling, PSNR at tau 0 at least at tau 15). 14b: the
+     (mean_rendered falling, PSNR at tau 0 at least at tau 15); the
+     ground truth's kNN scale init under PIPE_KNN_MAX. 14b: the
      full-train CLI in a subprocess on a small COLMAP scene.
   15. data-parallel: an NCCL world of one process on the card;
      parallel.data_parallel.dp_train_step at 1920x1080 on the bench scene,
@@ -269,6 +270,11 @@ PIPE = dict(per=250_000, ring=12, width=512, coarse_capacity=1 << 22,
 PIPE_CENTERS = np.array([[x, y, 5.0] for y in (-3.0, 0.0, 3.0)
                          for x in (-3.0, 0.0, 3.0)], np.float32)
 PIPE_JAX = dict(nodes=4_480_899, depth=22, iters=(600, 1500, 800, 400))
+# phase [14]'s check on its own inputs: the kNN scale init of the
+# ground-truth points stays under PIPE_KNN_MAX world units (their median is
+# 0.0074; a kNN that wraps each axis maximum to the far end of its Morton
+# curves starts those points at 1.4-6.3, Gaussians that cover the frame)
+PIPE_KNN_MAX = 0.1
 CLI_VIEWS, CLI_W, CLI_H = 8, 128, 96
 
 
@@ -2165,6 +2171,7 @@ def pipeline_phase(dev, smi, per=None):
     from hlod_gaussians_torch.hierarchy.cut import sanity_check_hierarchy
     from hlod_gaussians_torch.models.gaussians import (NODE_CHILD_COUNT,
                                                        NODE_DEPTH)
+    from hlod_gaussians_torch.ops import knn as knn_ops
     from hlod_gaussians_torch.ops import rasterize_cuda
     from hlod_gaussians_torch.pipeline import chunking, full_train
     from hlod_gaussians_torch.train import flat, post
@@ -2188,6 +2195,15 @@ def pipeline_phase(dev, smi, per=None):
     log(f"  scene: {len(pts)} ground-truth leaves, {len(views)} views "
         f"rendered ({len(train_views)} train, {len(test_views)} ring test) "
         f"in {time.perf_counter() - t0:.1f} s")
+    knn_scale = torch.sqrt(knn_ops.knn_mean_sq_dist(
+        torch.as_tensor(pts, device=dev))).cpu().numpy()
+    knn_bad = knn_scale.max() >= PIPE_KNN_MAX
+    log(f"  the ground truth's kNN scale init: median {np.median(knn_scale):.4f}"
+        f", largest {knn_scale.max():.4f} at rows "
+        f"{np.argsort(-knn_scale)[:3].tolist()} (each axis maximum at "
+        f"{np.unique(pts.argmax(axis=0)).tolist()}; bound {PIPE_KNN_MAX})"
+        + (" FAILS" if knn_bad else ""))
+    del knn_scale
     scene = SceneInfo(points=pts, colors=cols,
                       train_cameras=[SceneCamera(v) for v in train_views],
                       test_cameras=[], extent=9.0,
@@ -2450,6 +2466,9 @@ def pipeline_phase(dev, smi, per=None):
         f"renders (state capacity {cap}); an all-black image scores PSNR "
         f"{black:.3f}; the leaves' mean opacity "
         f"{float(merged.opacity[leaf].mean()):.4f}; warnings {warned}")
+    if knn_bad:
+        raise AssertionError(f"pipeline scene: the ground truth's kNN scale "
+                             f"init exceeds {PIPE_KNN_MAX}")
     rendered = [r.mean_rendered for r in table]
     if (rendered[0] <= rendered[-1]
             or any(a < b for a, b in zip(rendered, rendered[1:]))

@@ -32,6 +32,10 @@ def knn_mean_sq_dist(points, k: int = 3, window: int = 16, shifts: int = 3):
         # translate the points but keep the grid anchored at `lo`, so each
         # pass sees different cell boundaries
         shift = (s * 0.38196601) * extent
+        # each axis's largest point stays in the last cell: the reference's
+        # quantization sends it to code 0 on every curve, far from all of
+        # its neighbours, and the JAX package reports a distance of whole
+        # scene units for those points (their Gaussians cover the frame)
         perm = morton_argsort(points + shift, lo=lo, hi=hi + shift)
         inv = torch.empty_like(perm)
         inv[perm] = self_idx

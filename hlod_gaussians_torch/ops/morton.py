@@ -11,19 +11,22 @@ from __future__ import annotations
 import torch
 
 
-def morton_codes(points, lo=None, hi=None):
+def morton_codes(points, lo=None, hi=None, *, wrap_max: bool = True):
     """Quantize [N,3] points to 21 bits per axis and interleave: [N] int64.
 
     Reference quantization exactly (morton.cu:29-32): multiply by 2^21 and
     truncate; a coordinate at the exact max maps to 2^21, whose set bit lies
-    past the 21 interleaved bits and reads as 0 (the reference's quirk)."""
+    past the 21 interleaved bits and reads as 0 (the reference's quirk,
+    kept for order parity). With ``wrap_max=False`` it maps to 2^21 - 1,
+    the last cell, so the point keeps its place on the curve beside its
+    neighbours (every other coordinate quantizes as before)."""
     if lo is None:
         lo = points.min(dim=0).values
     if hi is None:
         hi = points.max(dim=0).values
     scale = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
-    q = torch.clamp((points - lo) / scale * float(1 << 21), 0.0,
-                    float(1 << 21))
+    top = float(1 << 21) if wrap_max else float((1 << 21) - 1)
+    q = torch.clamp((points - lo) / scale * float(1 << 21), 0.0, top)
     qi = q.to(torch.int64)
     code = torch.zeros(points.shape[:-1], dtype=torch.int64,
                        device=points.device)
@@ -34,5 +37,8 @@ def morton_codes(points, lo=None, hi=None):
 
 
 def morton_argsort(points, lo=None, hi=None):
-    """Indices that sort points in Morton order (ties keep index order)."""
-    return torch.sort(morton_codes(points, lo, hi), stable=True).indices
+    """Indices that sort points in Morton order (ties keep index order),
+    each axis's maximum in the last cell (``wrap_max=False``): the kNN's
+    curves, on which the reference's wrap would put that point at 0."""
+    return torch.sort(morton_codes(points, lo, hi, wrap_max=False),
+                      stable=True).indices

@@ -6,16 +6,21 @@ max_dup 2^22) at coarse / chunk / post steps 600 / 1500 / 800 with an MCMC
 round every 400 (scripts/tpu_pipeline_scale3.py:134-137), where
 chip_smoke.py cuts them to 60 / 200 / 100.
 
-    python3 scripts/torch_pipeline_full_steps.py [--out PATH]
+    python3 scripts/torch_pipeline_full_steps.py [--out PATH] [--keep DIR]
 
 Prints the run's log as it comes (stage seconds from run_pipeline's
 logger), then the merged tree's node count and depth, the leaves' mean
 opacity and the tau sweep (0, 3, 6, 15: PSNR, SSIM, GMSD, mean rendered)
 over the ring test views with an all-black image's PSNR beside it; then,
 for each chunk, its own post-optimized tree (chunk_*/hierarchy.dhier_opt)
-and the merged tree at tau 0 over the ring test views of the shell the
-chunk holds, to tell the chunks' training from the merge. Writes them as
+and the merged tree at tau 0 over the ring test views of the chunk's
+shell, to tell the chunks' training from the merge. Writes them as
 JSON to --out (default chiprun_out/pipeline_full.json).
+
+With ``--keep DIR`` the run's output directory is DIR and stays: the chunk
+trees (chunk_*/hierarchy.dhier_opt, center.txt), merged.dhier and
+views.npz (the ring test views' cameras, ground-truth images and shells),
+which is what `scripts/torch_merge_bisect.py DIR` reads.
 """
 
 import argparse
@@ -38,21 +43,24 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "pipeline_full.json"))
+    ap.add_argument("--keep", default=None, metavar="DIR",
+                    help="write the run's artifacts to DIR and keep them")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_pipeline_full_steps: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    res = run(torch.device("cuda"), cs.nvidia_smi_line())
+    res = run(torch.device("cuda"), cs.nvidia_smi_line(), keep=args.keep)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1, default=float)
     return 0
 
 
-def run(dev, smi, iters=ITERS):
-    """The run and its tau sweep on `dev`; returns the results."""
+def run(dev, smi, iters=ITERS, keep=None):
+    """The run and its tau sweep on `dev`; returns the results. With
+    `keep`, the run writes its artifacts there and leaves them."""
     import torch
     import chip_smoke as cs
     from hlod_gaussians_torch import eval as eval_mod
@@ -62,8 +70,9 @@ def run(dev, smi, iters=ITERS):
     from hlod_gaussians_torch.models.gaussians import (NODE_CHILD_COUNT,
                                                        NODE_DEPTH)
     from hlod_gaussians_torch.ops.ssim import psnr
-    from hlod_gaussians_torch.pipeline import full_train
+    from hlod_gaussians_torch.pipeline import chunking, full_train
     from hlod_gaussians_torch.train.post import create_from_dhier
+    from torch_merge_bisect import chunk_shell, save_views
     P = cs.PIPE
     print(smi, flush=True)
     t0 = time.perf_counter()
@@ -87,8 +96,14 @@ def run(dev, smi, iters=ITERS):
             print(f"  +{time.perf_counter() - t_run[0]:.1f} s "
                   + json.dumps(kv, default=float), flush=True)
 
-    out_dir = tempfile.TemporaryDirectory(prefix="pipeline_full_")
-    out = out_dir.name
+    out_dir = None if keep else tempfile.TemporaryDirectory(
+        prefix="pipeline_full_")
+    out = keep or out_dir.name
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        save_views(os.path.join(keep, "views.npz"), test,
+                   [i // P["ring"] for i in range(n_ring) if i % 3 == 0],
+                   cs.PIPE_CENTERS)
     t_run[0] = time.perf_counter()
     merged = full_train.run_pipeline(
         scene, view_loader=lambda ci: ci.v, output_dir=out, pcfg=pcfg,
@@ -130,7 +145,8 @@ def run(dev, smi, iters=ITERS):
     print(f"  an all-black image: PSNR {black:.3f}; warnings {warned}",
           flush=True)
     # each chunk's own tree against the merged tree, at tau 0 over the ring
-    # test views of the shell nearest the chunk tree's leaves
+    # test views of the chunk's shell (its leaves' mean lies elsewhere: a
+    # chunk tree also holds the scaffold ring around the chunk)
     ring = P["ring"]
     res["per_chunk_tau0"] = []
     for name in sorted(os.listdir(out)):
@@ -138,9 +154,8 @@ def run(dev, smi, iters=ITERS):
         if not name.startswith("chunk_") or not os.path.exists(path):
             continue
         d = dhier_io.load_dhier(path)
-        leaves = d.pos[d.nodes[:, NODE_CHILD_COUNT] == 0]
-        c = int(np.argmin(np.linalg.norm(
-            cs.PIPE_CENTERS - leaves.mean(axis=0), axis=1)))
+        c = chunk_shell(chunking.load_chunk_centers(
+            [os.path.join(out, name)])[0], cs.PIPE_CENTERS)
         vs = [views[i] for i in range(c * ring, (c + 1) * ring) if i % 3 == 0]
         gts = [v.image for v in vs]
         cst = create_from_dhier(
@@ -162,7 +177,8 @@ def run(dev, smi, iters=ITERS):
               f"{own.psnr:.3f} for its own tree, {mrg.psnr:.3f} for the "
               "merged tree", flush=True)
         del cst
-    out_dir.cleanup()
+    if out_dir is not None:
+        out_dir.cleanup()
     res["log"] = entries
     return res
 

@@ -6,7 +6,8 @@ the out-of-core trainer (pinned host store, device-resident row cache
 with and without prefetch) on the card against the CPU, a tiny
 run_pipeline on the card against the same run on the CPU, the train and
 post steps and an MCMC round repeated bitwise in PyTorch's default mode,
-GMSD at 1080p against the CPU under the default cuDNN TF32 setting, and
+GMSD at 1080p against the CPU under the default cuDNN TF32 setting, the
+kNN scale init of the pipeline's ground truth against the CPU, and
 bench_torch.py's full-size step. Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
@@ -924,6 +925,29 @@ def test_cuda_gmsd_matches_cpu_under_default_tf32(cuda_device):
             got = float(gmsd(torch.as_tensor(x, device=cuda_device),
                              torch.as_tensor(y, device=cuda_device)))
         assert abs(got - ref) <= 1e-5, (got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_knn_init_of_the_pipeline_scene_matches_cpu(cuda_device):
+    """The kNN scale init of chip_smoke.py phase [14]'s 2.25M ground-truth
+    points on the card against the CPU (rtol 1e-5, the bound at which the
+    CPU port holds to the JAX kNN in tests/test_torch_knn.py), and every
+    axis maximum at its neighbours' spacing: under PIPE_KNN_MAX, where a
+    wrapped one starts at whole scene units."""
+    import chip_smoke as cs
+    from hlod_gaussians_torch.ops.knn import knn_mean_sq_dist
+    rng = np.random.default_rng(7)
+    pts = np.concatenate([
+        (c + d / np.linalg.norm(d, axis=-1, keepdims=True)
+         * (0.7 + rng.normal(0, 0.01, (250_000, 1)))).astype(np.float32)
+        for c, d in ((c, rng.normal(size=(250_000, 3)))
+                     for c in cs.PIPE_CENTERS)])
+    got = knn_mean_sq_dist(torch.as_tensor(pts, device=cuda_device)).cpu()
+    ref = knn_mean_sq_dist(torch.as_tensor(pts))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    tops = np.unique(pts.argmax(axis=0))
+    assert float(got[tops].sqrt().max()) < cs.PIPE_KNN_MAX
+    assert float(got.sqrt().max()) < cs.PIPE_KNN_MAX
 
 
 def _bench_flat_state(dev, stride=4):

@@ -52,6 +52,7 @@ from hlod_gaussians_torch.models import gaussians as gm
 from hlod_gaussians_torch.pipeline import chunking, full_train
 from hlod_gaussians_torch.utils.camera import make_camera
 from hlod_gaussians_torch.utils.metrics import MetricsLogger
+from tests.jax_knn import knn_keeps_axis_max
 from tests.test_torch_hier_build import _cov
 from tests.test_torch_mcmc import leaves
 from tests.test_torch_post import POST_FIELDS, assert_step_close
@@ -172,7 +173,28 @@ def chunk_dirs(root):
 
 @pytest.fixture(scope="module")
 def zero_iter_runs(tmp_path_factory):
-    return run_both(tmp_path_factory.mktemp("pipe"), "zero")
+    # untrained states: the JAX kNN with the port's last cell for each axis
+    # maximum (tests/jax_knn.py; the two kNNs are compared in
+    # test_torch_knn.py)
+    with knn_keeps_axis_max():
+        return run_both(tmp_path_factory.mktemp("pipe"), "zero")
+
+
+@pytest.fixture(scope="module")
+def jax_knn_scaffold(tmp_path_factory):
+    """The JAX package's zero-step scaffold from its own kNN init (each
+    axis maximum wrapped, tests/jax_knn.py), as its run_pipeline writes
+    it: the scaffold both packages' few-step runs start from."""
+    from hlod_gaussians_tpu.utils import checkpoint as jckpt
+    (js, jv), _ = scene_pair()
+    jp, _ = pcfgs()
+    ts = jfull.train_coarse_scaffold(
+        jv, js.points, js.colors, js.extent, jp.coarse_iters,
+        jp.coarse_capacity, opt=JOpt(**OPT), cfg=JCFG, pcfg=jp,
+        skybox_num=jp.skybox_num)
+    path = str(tmp_path_factory.mktemp("scaffold") / "scaffold.npz")
+    jckpt.save_flat_state(path, ts)
+    return path
 
 
 def assert_dhier_close(t, j, atol=None, rtol=1e-6):
@@ -385,7 +407,7 @@ def assert_post_replays(calls, seed=5):
         assert_step_close(tts, jts, lrs, steps=n_iters)
 
 
-def test_run_pipeline_few_iters_matches_jax(tmp_path, zero_iter_runs,
+def test_run_pipeline_few_iters_matches_jax(tmp_path, jax_knn_scaffold,
                                             monkeypatch):
     """Three chunk steps and two post steps a chunk, from the same
     scaffold: the merged and chunk node tables equal and every leaf within
@@ -396,7 +418,7 @@ def test_run_pipeline_few_iters_matches_jax(tmp_path, zero_iter_runs,
     tolerance could turn it; the failure message names such rows); each
     post stage rerun with its recorded views and settings holds every node
     to the step tolerance (assert_post_replays)."""
-    scaffold = zero_iter_runs[4]
+    scaffold = jax_knn_scaffold
     steps = 3
     calls = record_post(monkeypatch)
     jm, tm, jdir, tdir, _ = run_both(tmp_path, "few", scaffold=scaffold,
@@ -524,9 +546,10 @@ def test_train_coarse_scaffold_matches_jax():
     for _ in range(4):
         key, sub = jax.random.split(key)
         bgs.append(np.array(jax.random.uniform(sub, (3,))))
-    jt = jfull.train_coarse_scaffold(
-        jv, js.points, js.colors, EXTENT, 4, 128, opt=JOpt(**OPT),
-        cfg=JCFG, pcfg=jfull.PipelineConfig(**pcfg), skybox_num=4)
+    with knn_keeps_axis_max():
+        jt = jfull.train_coarse_scaffold(
+            jv, js.points, js.colors, EXTENT, 4, 128, opt=JOpt(**OPT),
+            cfg=JCFG, pcfg=jfull.PipelineConfig(**pcfg), skybox_num=4)
     tt = full_train.train_coarse_scaffold(
         tv, ts.points, ts.colors, EXTENT, 4, 128,
         opt=OptimizationConfig(**OPT), cfg=CFG,

@@ -38,6 +38,7 @@ from hlod_gaussians_torch.models import gaussians as gm
 from hlod_gaussians_torch.ops import rasterize_cuda, ssim
 from hlod_gaussians_torch.train import coarse, flat
 from hlod_gaussians_torch.utils.camera import make_camera
+from tests.jax_knn import knn_keeps_axis_max
 
 CPU = torch.device("cpu")
 W, H = 64, 64
@@ -358,8 +359,11 @@ def test_coarse_frozen_xyz_stays_finite():
     cols = rng.random((24, 3)).astype(np.float32)
     ts = coarse.init_coarse(pts, cols, capacity=40, scene_radius=1.0,
                             skybox_num=8, device=CPU)
-    jts = jcoarse.init_coarse(pts, cols, capacity=40, scene_radius=1.0,
-                              skybox_num=8)
+    # the JAX kNN with the port's last cell for each axis maximum
+    # (tests/jax_knn.py; the two kNNs are compared in test_torch_knn.py)
+    with knn_keeps_axis_max():
+        jts = jcoarse.init_coarse(pts, cols, capacity=40, scene_radius=1.0,
+                                  skybox_num=8)
     assert ts.gaussians.sh_degree == 1 and ts.gaussians.n_skybox == 8
     for k in FIELDS:
         np.testing.assert_allclose(getattr(ts.gaussians, k).numpy(),
