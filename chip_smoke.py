@@ -116,8 +116,11 @@ Phases (any failure raises and exits non-zero):
      inside their trees, the merged tree proper; a resume that touches no
      artifact and writes a byte-equal merge; B1 and B2 against their plain
      versions at a chunk-training frame; the tau sweep on the merged tree
-     (mean_rendered falling, PSNR at tau 0 at least at tau 15); the
-     ground truth's kNN scale init under PIPE_KNN_MAX. 14b: the
+     over the ring test views (mean_rendered falling, PSNR at tau 0 at
+     least at tau 15) and over the JAX run's 4 orbit views, which no chunk
+     trained on (mean_rendered falling, tau-0 PSNR PIPE_ORBIT_DB above an
+     all-black image's), one B1 launch a render; the ground truth's kNN
+     scale init under PIPE_KNN_MAX. 14b: the
      full-train CLI in a subprocess on a small COLMAP scene.
   15. data-parallel: an NCCL world of one process on the card;
      parallel.data_parallel.dp_train_step at 1920x1080 on the bench scene,
@@ -269,12 +272,36 @@ PIPE = dict(per=250_000, ring=12, width=512, coarse_capacity=1 << 22,
             eval_budget=1 << 20)
 PIPE_CENTERS = np.array([[x, y, 5.0] for y in (-3.0, 0.0, 3.0)
                          for x in (-3.0, 0.0, 3.0)], np.float32)
-PIPE_JAX = dict(nodes=4_480_899, depth=22, iters=(600, 1500, 800, 400))
+# the JAX run's structural counts and its two tau tables (tau, PSNR, SSIM,
+# GMSD, mean rendered), copied from PIPELINE_r05.json: over the 36 ring
+# test views, and over the 4 orbit views that no chunk trained on
+PIPE_JAX = dict(
+    nodes=4_480_899, depth=22, iters=(600, 1500, 800, 400),
+    tau_sweep_ring_heldout=[
+        dict(tau=0.0, psnr=40.861, ssim=0.9927, gmsd=0.02819,
+             mean_rendered=959929.4),
+        dict(tau=3.0, psnr=27.107, ssim=0.9343, gmsd=0.11577,
+             mean_rendered=7209.4),
+        dict(tau=6.0, psnr=22.574, ssim=0.8884, gmsd=0.18404,
+             mean_rendered=2120.4),
+        dict(tau=15.0, psnr=16.684, ssim=0.7057, gmsd=0.23087,
+             mean_rendered=620.1)],
+    tau_sweep_global_orbit=[
+        dict(tau=0.0, psnr=34.448, ssim=0.9861, gmsd=0.02792,
+             mean_rendered=350092.5),
+        dict(tau=3.0, psnr=19.684, ssim=0.7668, gmsd=0.25497,
+             mean_rendered=2711.0),
+        dict(tau=6.0, psnr=15.686, ssim=0.6175, gmsd=0.33166,
+             mean_rendered=1027.8),
+        dict(tau=15.0, psnr=10.064, ssim=0.1381, gmsd=0.26702,
+             mean_rendered=504.0)])
 # phase [14]'s check on its own inputs: the kNN scale init of the
 # ground-truth points stays under PIPE_KNN_MAX world units (their median is
 # 0.0074; a kNN that wraps each axis maximum to the far end of its Morton
 # curves starts those points at 1.4-6.3, Gaussians that cover the frame)
 PIPE_KNN_MAX = 0.1
+# [14]'s orbit views at tau 0 score at least this many dB above black
+PIPE_ORBIT_DB = 5.0
 CLI_VIEWS, CLI_W, CLI_H = 8, 128, 96
 
 
@@ -2193,8 +2220,8 @@ def pipeline_phase(dev, smi, per=None):
     train_views = [v for i, v in enumerate(views[:n_ring]) if i % 3 != 0]
     test_views = [v for i, v in enumerate(views[:n_ring]) if i % 3 == 0]
     log(f"  scene: {len(pts)} ground-truth leaves, {len(views)} views "
-        f"rendered ({len(train_views)} train, {len(test_views)} ring test) "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"rendered ({len(train_views)} train, {len(test_views)} ring test, "
+        f"{len(views) - n_ring} orbit) in {time.perf_counter() - t0:.1f} s")
     knn_scale = torch.sqrt(knn_ops.knn_mean_sq_dist(
         torch.as_tensor(pts, device=dev))).cpu().numpy()
     knn_bad = knn_scale.max() >= PIPE_KNN_MAX
@@ -2441,34 +2468,49 @@ def pipeline_phase(dev, smi, per=None):
                                            smi)
     torch.cuda.empty_cache()
 
-    # the tau sweep on the merged tree over the ring test views
+    # the tau sweeps on the merged tree: over the ring test views, and over
+    # the four orbit views of the whole grid, which no chunk trained on
+    from hlod_gaussians_torch.ops.ssim import psnr
     from hlod_gaussians_torch.train.post import create_from_dhier
     cap = 1 << int(np.ceil(np.log2(merged.pos.shape[0] + 1)))
     st = create_from_dhier(merged, capacity=cap, device=dev)
     eval_cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
                                 max_dup=PIPE["gt_max_dup"],
                                 tight_binning=True)
-    warned = []
+    sweeps = {"ring test": test_views, "orbit": views[n_ring:]}
+    warned, tables = [], {}
+    kernel.launches = kernel_b2.launches = 0
     t0 = time.perf_counter()
-    table = eval_mod.eval_views(
-        st, test_views, [v.image for v in test_views], EVAL_TAUS,
-        level_is_tau=True, budget=PIPE["eval_budget"], cfg=eval_cfg,
-        k_max=1024, warn=warned.append)
+    for key, vs in sweeps.items():
+        tables[key] = eval_mod.eval_views(
+            st, vs, [v.image for v in vs], EVAL_TAUS, level_is_tau=True,
+            budget=PIPE["eval_budget"], cfg=eval_cfg, k_max=1024,
+            warn=warned.append)
     eval_s = time.perf_counter() - t0
-    for r in table:
-        log(f"  tau {r.level:4.1f}: PSNR {r.psnr:.3f}  SSIM {r.ssim:.4f}  "
-            f"GMSD {r.gmsd:.5f}  mean rendered {r.mean_rendered:.1f}")
-    from hlod_gaussians_torch.ops.ssim import psnr
-    black = statistics.mean(float(psnr(torch.zeros_like(v.image), v.image))
-                            for v in test_views)
+    eval_launches = (kernel.launches, kernel_b2.launches)
+    n_renders = len(EVAL_TAUS) * sum(len(vs) for vs in sweeps.values())
+    black = {}
+    for key, vs in sweeps.items():
+        log(f"  the {key} views ({len(vs)}):")
+        for r in tables[key]:
+            log(f"    tau {r.level:4.1f}: PSNR {r.psnr:.3f}  SSIM "
+                f"{r.ssim:.4f}  GMSD {r.gmsd:.5f}  mean rendered "
+                f"{r.mean_rendered:.1f}")
+        black[key] = statistics.mean(
+            float(psnr(torch.zeros_like(v.image), v.image)) for v in vs)
+        log(f"    an all-black image scores PSNR {black[key]:.3f}")
     leaf = merged.nodes[:, NODE_CHILD_COUNT] == 0
-    log(f"  eval {eval_s:.1f} s for {len(EVAL_TAUS) * len(test_views)} "
-        f"renders (state capacity {cap}); an all-black image scores PSNR "
-        f"{black:.3f}; the leaves' mean opacity "
+    log(f"  eval {eval_s:.1f} s for {n_renders} renders (state capacity "
+        f"{cap}), B1 / B2 launches {eval_launches[0]} / {eval_launches[1]}"
+        f"; the leaves' mean opacity "
         f"{float(merged.opacity[leaf].mean()):.4f}; warnings {warned}")
     if knn_bad:
         raise AssertionError(f"pipeline scene: the ground truth's kNN scale "
                              f"init exceeds {PIPE_KNN_MAX}")
+    if eval_launches != (n_renders, 0):
+        raise AssertionError(f"the tau sweeps launched {eval_launches}, not "
+                             f"({n_renders}, 0)")
+    table = tables["ring test"]
     rendered = [r.mean_rendered for r in table]
     if (rendered[0] <= rendered[-1]
             or any(a < b for a, b in zip(rendered, rendered[1:]))
@@ -2476,12 +2518,22 @@ def pipeline_phase(dev, smi, per=None):
             or not table[0].psnr >= table[-1].psnr):
         raise AssertionError("the tau sweep on the merged tree is not "
                              "monotone")
+    # the orbit at these step counts has no JAX reading to be held to: its
+    # cut shrinks with tau, and at tau 0 it draws the grid well above black
+    table = tables["orbit"]
+    rendered = [r.mean_rendered for r in table]
+    if (rendered[0] <= rendered[-1]
+            or any(a < b for a, b in zip(rendered, rendered[1:]))
+            or not table[0].psnr >= black["orbit"] + PIPE_ORBIT_DB):
+        raise AssertionError(f"the orbit sweep: mean rendered {rendered}, "
+                             f"tau-0 PSNR {table[0].psnr:.3f} against black "
+                             f"{black['orbit']:.3f}")
     del st, merged
     import shutil
     shutil.rmtree(out_root)
     torch.cuda.empty_cache()
-    return dict(b1=launches[0], b2=launches[1], b1_frame=b1, b2_frame=b2,
-                b1_err=b1_err, b2_err=b2_err)
+    return dict(b1=launches[0], b2=launches[1], b1_eval=eval_launches[0],
+                b1_frame=b1, b2_frame=b2, b1_err=b1_err, b2_err=b2_err)
 
 
 def write_png(path, img):
@@ -4520,11 +4572,13 @@ def main():
         "replaces": "hlod_gaussians_tpu/ops/rasterize_pallas.py:700",
         "launches": (flat_launches + lod_launches + train_launches
                      + sum(lodr["b1"].values()) + postr["b1"] + offr["b1"]
-                     + piper["b1"] + sum(scale_b1.values()) + bench_b1),
+                     + piper["b1"] + piper["b1_eval"]
+                     + sum(scale_b1.values()) + bench_b1),
         "launches_by_path": dict({"flat": flat_launches, "lod": lod_launches,
                                   "train": train_launches}, **lodr["b1"],
                                  post=postr["b1"], offload=offr["b1"],
-                                 pipeline=piper["b1"], **scale_b1,
+                                 pipeline=piper["b1"],
+                                 pipeline_eval=piper["b1_eval"], **scale_b1,
                                  bench=bench_b1),
         "max_abs_err": max_err,
         "ms": kernel_ms,

@@ -10,8 +10,11 @@ chip_smoke.py cuts them to 60 / 200 / 100.
 
 Prints the run's log as it comes (stage seconds from run_pipeline's
 logger), then the merged tree's node count and depth, the leaves' mean
-opacity and the tau sweep (0, 3, 6, 15: PSNR, SSIM, GMSD, mean rendered)
-over the ring test views with an all-black image's PSNR beside it; then,
+opacity and two tau sweeps (0, 3, 6, 15: PSNR, SSIM, GMSD, mean
+rendered), each column beside the JAX run's (PIPELINE_r05.json, copied
+into chip_smoke.PIPE_JAX) with an all-black image's PSNR: over the 36
+ring test views, and over the 4 orbit views of the whole grid, which no
+chunk trained on, with their tau-0 cuts before the budget; then,
 for each chunk, its own post-optimized tree (chunk_*/hierarchy.dhier_opt)
 and the merged tree at tau 0 over the ring test views of the chunk's
 shell, to tell the chunks' training from the merge. Writes them as
@@ -58,8 +61,24 @@ def main():
     return 0
 
 
+def beside_jax(rows, jax_rows):
+    """One line a tau of a tau table (dicts of tau, psnr, ssim, gmsd,
+    mean_rendered), each column as port / JAX run, with the PSNR
+    difference."""
+    lines = []
+    for r, j in zip(rows, jax_rows, strict=True):
+        if j["tau"] != r["tau"]:
+            raise ValueError(f"tau {r['tau']} beside the JAX run's {j['tau']}")
+        lines.append(
+            f"tau {r['tau']:4.1f}: PSNR {r['psnr']:.3f} / {j['psnr']:.3f} "
+            f"({r['psnr'] - j['psnr']:+.3f} dB)  SSIM {r['ssim']:.4f} / "
+            f"{j['ssim']:.4f}  GMSD {r['gmsd']:.5f} / {j['gmsd']:.5f}  mean "
+            f"rendered {r['mean_rendered']:.1f} / {j['mean_rendered']:.1f}")
+    return lines
+
+
 def run(dev, smi, iters=ITERS, keep=None):
-    """The run and its tau sweep on `dev`; returns the results. With
+    """The run and its tau sweeps on `dev`; returns the results. With
     `keep`, the run writes its artifacts there and leaves them."""
     import torch
     import chip_smoke as cs
@@ -72,7 +91,7 @@ def run(dev, smi, iters=ITERS, keep=None):
     from hlod_gaussians_torch.ops.ssim import psnr
     from hlod_gaussians_torch.pipeline import chunking, full_train
     from hlod_gaussians_torch.train.post import create_from_dhier
-    from torch_merge_bisect import chunk_shell, save_views
+    from torch_merge_bisect import chunk_shell, cut_sizes, save_views
     P = cs.PIPE
     print(smi, flush=True)
     t0 = time.perf_counter()
@@ -80,13 +99,15 @@ def run(dev, smi, iters=ITERS, keep=None):
     n_ring = len(cs.PIPE_CENTERS) * P["ring"]
     train = [v for i, v in enumerate(views[:n_ring]) if i % 3 != 0]
     test = [v for i, v in enumerate(views[:n_ring]) if i % 3 == 0]
+    orbit = views[n_ring:]
     scene = SceneInfo(points=pts, colors=cols,
                       train_cameras=[cs.SceneCamera(v) for v in train],
                       test_cameras=[], extent=9.0,
                       center=np.zeros(3, np.float32))
     scene_s = time.perf_counter() - t0
-    print(f"scene: {len(pts)} ground-truth points, {len(train)} train and "
-          f"{len(test)} ring test views in {scene_s:.1f} s", flush=True)
+    print(f"scene: {len(pts)} ground-truth points, {len(train)} train, "
+          f"{len(test)} ring test and {len(orbit)} orbit views in "
+          f"{scene_s:.1f} s", flush=True)
     pcfg, opt, pconf, mcfg, cfg = cs.pipeline_settings(*iters)
     entries, t_run = [], [time.perf_counter()]
 
@@ -128,22 +149,36 @@ def run(dev, smi, iters=ITERS, keep=None):
     eval_cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
                                 max_dup=P["gt_max_dup"], tight_binning=True)
     warned = []
-    table = eval_mod.eval_views(
-        st, test, [v.image for v in test], cs.EVAL_TAUS, level_is_tau=True,
-        budget=P["eval_budget"], cfg=eval_cfg, k_max=1024,
-        warn=warned.append)
-    black = statistics.mean(float(psnr(torch.zeros_like(v.image), v.image))
-                            for v in test)
-    res["tau_sweep_ring_heldout"] = [
-        dict(tau=r.level, psnr=r.psnr, ssim=r.ssim, gmsd=r.gmsd,
-             mean_rendered=r.mean_rendered) for r in table]
-    res["black_psnr"], res["warnings"] = black, warned
-    for r in table:
-        print(f"  tau {r.level:4.1f}: PSNR {r.psnr:.3f}  SSIM {r.ssim:.4f}  "
-              f"GMSD {r.gmsd:.5f}  mean rendered {r.mean_rendered:.1f}",
-              flush=True)
-    print(f"  an all-black image: PSNR {black:.3f}; warnings {warned}",
-          flush=True)
+
+    def sweep(key, vs):
+        """The tau sweep over `vs`, stored under `key` and printed beside
+        the JAX run's table of that name; and an all-black image's PSNR."""
+        table = eval_mod.eval_views(
+            st, vs, [v.image for v in vs], cs.EVAL_TAUS, level_is_tau=True,
+            budget=P["eval_budget"], cfg=eval_cfg, k_max=1024,
+            warn=lambda w: "LPIPS" in w or warned.append(w))
+        res[key] = [dict(tau=r.level, psnr=r.psnr, ssim=r.ssim, gmsd=r.gmsd,
+                         mean_rendered=r.mean_rendered) for r in table]
+        black = statistics.mean(float(psnr(torch.zeros_like(v.image),
+                                           v.image)) for v in vs)
+        print(f"  {key} over {len(vs)} views, port / JAX run "
+              "(PIPELINE_r05.json):", flush=True)
+        for line in beside_jax(res[key], cs.PIPE_JAX[key]):
+            print("    " + line, flush=True)
+        print(f"    an all-black image: PSNR {black:.3f}", flush=True)
+        return black
+
+    res["black_psnr"] = sweep("tau_sweep_ring_heldout", test)
+    # the four orbit views of the whole grid, from directions no chunk
+    # trained on (tpu_pipeline_scale3.py:96-101), and their tau-0 cuts
+    # before the budget, which drops the smallest on-screen nodes
+    res["black_psnr_orbit"] = sweep("tau_sweep_global_orbit", orbit)
+    res["orbit_cut_tau0"] = cut_sizes(st, orbit, 0.0)
+    print(f"  the orbit views' tau-0 cuts before the budget: "
+          f"{res['orbit_cut_tau0']}, over {P['eval_budget']}: "
+          f"{sum(n > P['eval_budget'] for n in res['orbit_cut_tau0'])} of "
+          f"{len(orbit)}; warnings {warned}", flush=True)
+    res["warnings"] = warned
     # each chunk's own tree against the merged tree, at tau 0 over the ring
     # test views of the chunk's shell (its leaves' mean lies elsewhere: a
     # chunk tree also holds the scaffold ring around the chunk)

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of hlod_gaussians_torch, and
-none of chip_smoke.py, bench_torch.py and scripts/torch_frame_profile.py,
-imports jax or hlod_gaussians_tpu — checked by an AST scan of the sources and by importing
-every module in a fresh interpreter and reading its sys.modules."""
+none of chip_smoke.py, bench_torch.py and the scripts
+torch_frame_profile.py, torch_pipeline_full_steps.py and
+torch_merge_bisect.py, imports jax or hlod_gaussians_tpu — checked by an
+AST scan of the sources and by importing every module in a fresh
+interpreter and reading its sys.modules."""
 
 import ast
 import os
@@ -19,7 +21,9 @@ FORBIDDEN = ("jax", "jaxlib", "hlod_gaussians_tpu")
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-        ROOT / "scripts" / "torch_frame_profile.py"]
+        ROOT / "scripts" / "torch_frame_profile.py",
+        ROOT / "scripts" / "torch_pipeline_full_steps.py",
+        ROOT / "scripts" / "torch_merge_bisect.py"]
 
 
 def _modules():
