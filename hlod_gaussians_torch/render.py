@@ -13,6 +13,11 @@ Both backends are differentiable with respect to means3d, scales, quats,
 opacities, shs and xy_offset. The pallas backend blends with the CUDA
 kernel B1 and differentiates through kernel B2 (ops/rasterize.py); the xla
 backend blends with the plain scan and differentiates through autograd.
+
+Spans (utils/metrics.span): render_arrays opens `hlod.project`, `hlod.bin`
+and `hlod.blend`; the LOD entry points `hlod.cut`, `hlod.compact` (the
+budgeted path) and `hlod.interp`; render_lod_stream `hlod.lod_stream`
+around its frame, whose feedback it adds to `counters` as it reads it.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
 from hlod_gaussians_torch.ops.binning import bin_gaussians, tile_grid
 from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
 from hlod_gaussians_torch.ops.rasterize_xla import rasterize_scan
+from hlod_gaussians_torch.utils.metrics import counters, span
 
 
 class RenderResult(NamedTuple):
@@ -78,52 +84,54 @@ def render_arrays(
     horizontal bands of whole tile rows (tile-parallel rendering): the
     per-pixel outputs are [band_h, W], band_h = (tile rows // n) * tile_h,
     and the band's entries are capped at max_dup // n."""
+    if cfg.backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
 
-    cov6 = gaussian_math.compute_cov3d(scales, quats)
-    max_scale = torch.max(scales, dim=-1).values
-    proj = gaussian_math.project_gaussians(
-        means3d, cov6, opacities, world_view, full_proj,
-        width, height, focal_x, focal_y, tan_fovx, tan_fovy,
-        dilation=cfg.dilation, antialiasing=antialiasing, near=cfg.near,
-        valid_in=valid, big_limit=cfg.big_limit, max_scale=max_scale)
+    with span("hlod.project"):
+        cov6 = gaussian_math.compute_cov3d(scales, quats)
+        max_scale = torch.max(scales, dim=-1).values
+        proj = gaussian_math.project_gaussians(
+            means3d, cov6, opacities, world_view, full_proj,
+            width, height, focal_x, focal_y, tan_fovx, tan_fovy,
+            dilation=cfg.dilation, antialiasing=antialiasing, near=cfg.near,
+            valid_in=valid, big_limit=cfg.big_limit, max_scale=max_scale)
 
-    xy = proj.xy if xy_offset is None else proj.xy + xy_offset
-    color = sh_ops.sh_color(sh_degree, shs, means3d, campos)
-    invdepth_g = 1.0 / torch.clamp_min(proj.depth, 1e-6)
+        xy = proj.xy if xy_offset is None else proj.xy + xy_offset
+        color = sh_ops.sh_color(sh_degree, shs, means3d, campos)
+        invdepth_g = 1.0 / torch.clamp_min(proj.depth, 1e-6)
     ts_r, kids_r = (ts, kids) if use_lod else (None, None)
-    valid_b, height_b, max_dup = proj.valid, height, cfg.max_dup
-    if band is not None:
-        xy, valid_b, height_b = _band_local(xy, proj, band, width, height,
-                                            cfg)
-        max_dup = cfg.max_dup // band[1]
 
-    if cfg.backend == "pallas":
-        # tight alpha-aware coverage on the production path
-        tight = cfg.tight_binning
+    with span("hlod.bin"):
+        valid_b, height_b, max_dup = proj.valid, height, cfg.max_dup
+        if band is not None:
+            xy, valid_b, height_b = _band_local(xy, proj, band, width,
+                                                height, cfg)
+            max_dup = cfg.max_dup // band[1]
+        # tight alpha-aware coverage on the production path; the scan path
+        # keeps the reference's circle rects
+        tight = cfg.backend == "pallas" and cfg.tight_binning
         bins = bin_gaussians(
             xy.detach(), proj.depth.detach(), proj.radius, valid_b,
             width, height_b, cfg.tile_w, cfg.tile_h, max_dup,
             ext=proj.ext.detach() if tight else None,
             reff2=proj.reff2.detach() if tight else None)
-        out = rasterize_tiles(
-            bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
-            ts_r, kids_r, width=width, height=height_b, tile_w=cfg.tile_w,
-            tile_h=cfg.tile_h, t_eps=cfg.t_eps, alpha_min=cfg.alpha_min,
-            want_seen=want_seen, inference=cfg.inference)
-    elif cfg.backend == "xla":
-        # the scan path keeps the reference's circle rects
-        bins = bin_gaussians(
-            xy.detach(), proj.depth.detach(), proj.radius, valid_b,
-            width, height_b, cfg.tile_w, cfg.tile_h, max_dup)
-        out = rasterize_scan(
-            bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
-            ts_r, kids_r, width=width, height=height_b, tile_w=cfg.tile_w,
-            tile_h=cfg.tile_h, k_max=k_max, t_eps=cfg.t_eps,
-            alpha_min=cfg.alpha_min)
-    else:
-        raise ValueError(f"unknown backend {cfg.backend!r}")
+
+    with span("hlod.blend"):
+        if cfg.backend == "pallas":
+            out = rasterize_tiles(
+                bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
+                ts_r, kids_r, width=width, height=height_b,
+                tile_w=cfg.tile_w, tile_h=cfg.tile_h, t_eps=cfg.t_eps,
+                alpha_min=cfg.alpha_min, want_seen=want_seen,
+                inference=cfg.inference)
+        else:
+            out = rasterize_scan(
+                bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
+                ts_r, kids_r, width=width, height=height_b,
+                tile_w=cfg.tile_w, tile_h=cfg.tile_h, k_max=k_max,
+                t_eps=cfg.t_eps, alpha_min=cfg.alpha_min)
     return RenderResult(
         image=out.image, invdepth=out.invdepth, final_t=out.final_t,
         n_contrib=out.n_contrib, seen=out.seen, radii=proj.radius,
@@ -185,14 +193,15 @@ def _compute_cut(precomputed_cut, boxes, nodes, means3d, scales, alive,
     third column of the world->view linear block (row-vector convention)."""
     if precomputed_cut is not None:
         return precomputed_cut
-    if boxes is not None:
-        box_lo, box_hi, max_side = boxes
-        return cut_mod.expand_to_size_box(
-            nodes, box_lo, box_hi, max_side, alive, campos, target_size,
-            pcache)
-    return cut_mod.expand_to_size_dynamic(
-        nodes, means3d, torch.max(scales, dim=1).values, alive, campos,
-        world_view[:3, 2], target_size, pcache, use_frustum=use_frustum)
+    with span("hlod.cut"):
+        if boxes is not None:
+            box_lo, box_hi, max_side = boxes
+            return cut_mod.expand_to_size_box(
+                nodes, box_lo, box_hi, max_side, alive, campos, target_size,
+                pcache)
+        return cut_mod.expand_to_size_dynamic(
+            nodes, means3d, torch.max(scales, dim=1).values, alive, campos,
+            world_view[:3, 2], target_size, pcache, use_frustum=use_frustum)
 
 
 def _prepend_skybox(n_skybox, alive, means3d, scales, quats, opacities, shs,
@@ -216,16 +225,20 @@ def _prepend_skybox(n_skybox, alive, means3d, scales, quats, opacities, shs,
 
 
 def _render_interp(n_skybox, alive, means3d, scales, quats, opacities, shs,
-                   interp, valid, ts, kids, world_view, full_proj, campos,
-                   tan_fovx, tan_fovy, bg, *, sh_degree, width, height, cfg,
-                   k_max, antialiasing):
-    """Prepend the skybox to the interpolated cut, normalize the
-    quaternions and blend with the LOD alpha."""
-    (means_r, scales_r, quats_r, opac_r, shs_r, valid_r, ts_r,
-     kids_r) = _prepend_skybox(n_skybox, alive, means3d, scales, quats,
-                               opacities, shs, interp, valid, ts, kids)
-    quats_r = quats_r / torch.linalg.norm(quats_r, dim=-1,
-                                          keepdim=True).clamp_min(1e-12)
+                   interpolate, world_view, full_proj, campos, tan_fovx,
+                   tan_fovy, bg, *, sh_degree, width, height, cfg, k_max,
+                   antialiasing):
+    """Interpolate the cut (``interpolate()`` returns the interpolated
+    rows, valid, ts and kids), prepend the skybox and normalize the
+    quaternions, all inside the `hlod.interp` span; then blend with the LOD
+    alpha."""
+    with span("hlod.interp"):
+        interp, valid, ts, kids = interpolate()
+        (means_r, scales_r, quats_r, opac_r, shs_r, valid_r, ts_r,
+         kids_r) = _prepend_skybox(n_skybox, alive, means3d, scales, quats,
+                                   opacities, shs, interp, valid, ts, kids)
+        quats_r = quats_r / torch.linalg.norm(quats_r, dim=-1,
+                                              keepdim=True).clamp_min(1e-12)
     return render_arrays(
         means_r, scales_r, quats_r, opac_r, shs_r, valid_r,
         world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
@@ -290,25 +303,31 @@ def render_lod(
     cut = _compute_cut(precomputed_cut, boxes, nodes, means3d, scales, alive,
                        campos, world_view, target_size, pcache, use_frustum)
 
-    mask = cut.render_mask if cut_mask is None else \
-        (cut_mask & alive & (nodes[:, NODE_DEPTH] >= 0))
-    n_selected = torch.sum(mask)
-    idx_c, sel_valid = compact_cut(mask, cut.size, budget)
-    ts_sel = cut.ts[idx_c]
-    kids_sel = cut.kids[idx_c]
-    if interp_table is not None:
-        interp = cut_mod.interpolate_from_table(interp_table, idx_c, ts_sel)
-    else:
-        parent = torch.clamp(nodes[idx_c, NODE_PARENT], 0, c - 1).long()
-        params = dict(means3d=means3d, scales=scales, quats=quats,
-                      opacities=opacities, shs=shs)
-        interp = cut_mod.interpolate_with_parents(params, idx_c, parent,
-                                                  ts_sel)
+    with span("hlod.compact"):
+        mask = cut.render_mask if cut_mask is None else \
+            (cut_mask & alive & (nodes[:, NODE_DEPTH] >= 0))
+        n_selected = torch.sum(mask)
+        idx_c, sel_valid = compact_cut(mask, cut.size, budget)
+        ts_sel = cut.ts[idx_c]
+        kids_sel = cut.kids[idx_c]
+
+    def interpolate():
+        if interp_table is not None:
+            interp = cut_mod.interpolate_from_table(interp_table, idx_c,
+                                                    ts_sel)
+        else:
+            parent = torch.clamp(nodes[idx_c, NODE_PARENT], 0, c - 1).long()
+            params = dict(means3d=means3d, scales=scales, quats=quats,
+                          opacities=opacities, shs=shs)
+            interp = cut_mod.interpolate_with_parents(params, idx_c, parent,
+                                                      ts_sel)
+        return interp, sel_valid, ts_sel, kids_sel
+
     out = _render_interp(
-        n_skybox, alive, means3d, scales, quats, opacities, shs, interp,
-        sel_valid, ts_sel, kids_sel, world_view, full_proj, campos,
-        tan_fovx, tan_fovy, bg, sh_degree=sh_degree, width=width,
-        height=height, cfg=cfg, k_max=k_max, antialiasing=antialiasing)
+        n_skybox, alive, means3d, scales, quats, opacities, shs, interpolate,
+        world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
+        sh_degree=sh_degree, width=width, height=height, cfg=cfg,
+        k_max=k_max, antialiasing=antialiasing)
     return out, n_selected
 
 
@@ -336,18 +355,23 @@ def render_lod_masked(
     cfg = dataclasses.replace(cfg, inference=True)
     cut = _compute_cut(precomputed_cut, boxes, nodes, means3d, scales, alive,
                        campos, world_view, target_size, pcache, use_frustum)
-    if interp_table is None:
-        interp_table = cut_mod.build_interp_table(
-            dict(means3d=means3d, scales=scales, quats=quats,
-                 opacities=opacities, shs=shs), nodes)
     mask = cut.render_mask
-    interp = cut_mod.interpolate_all_masked(interp_table, cut.ts, mask)
+
+    def interpolate():
+        table = interp_table
+        if table is None:
+            table = cut_mod.build_interp_table(
+                dict(means3d=means3d, scales=scales, quats=quats,
+                     opacities=opacities, shs=shs), nodes)
+        return (cut_mod.interpolate_all_masked(table, cut.ts, mask), mask,
+                torch.where(mask, cut.ts, torch.ones_like(cut.ts)),
+                torch.clamp_min(cut.kids, 1))
+
     out = _render_interp(
-        n_skybox, alive, means3d, scales, quats, opacities, shs, interp,
-        mask, torch.where(mask, cut.ts, torch.ones_like(cut.ts)),
-        torch.clamp_min(cut.kids, 1), world_view, full_proj, campos,
-        tan_fovx, tan_fovy, bg, sh_degree=sh_degree, width=width,
-        height=height, cfg=cfg, k_max=k_max, antialiasing=antialiasing)
+        n_skybox, alive, means3d, scales, quats, opacities, shs, interpolate,
+        world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
+        sh_degree=sh_degree, width=width, height=height, cfg=cfg,
+        k_max=k_max, antialiasing=antialiasing)
     return out, torch.sum(mask)
 
 
@@ -542,76 +566,83 @@ def render_lod_stream(
     which counts its cut once (a sync) to seed the bucket. It holds
     "budget", "md" (the capacity high-water per bucket, "MASKED" for the
     masked path), "shrink" (frames the cut has wanted a smaller bucket),
-    "n_truncated_frames" and the pending feedback. Returns
-    (RenderResult, n_selected device scalar)."""
-    cap = means3d.shape[0]
+    "n_truncated_frames" and the pending feedback. As it reads a frame's
+    feedback it adds to `counters` the nodes drawn (n_selected, at most
+    the budget) and the rows interpolated (the tree's on the masked path,
+    the budget on the budgeted one). Returns (RenderResult, n_selected
+    device scalar)."""
+    with span("hlod.lod_stream"):
+        cap = means3d.shape[0]
 
-    def bucket_for(n_sel: int) -> int:
-        return _budget_bucket(int(n_sel * headroom) + 1, min_budget,
-                              max_budget, cap)
+        def bucket_for(n_sel: int) -> int:
+            return _budget_bucket(int(n_sel * headroom) + 1, min_budget,
+                                  max_budget, cap)
 
-    if "budget" not in state:
-        cut0 = _compute_cut(None, boxes, nodes, means3d, scales, alive,
-                            campos, world_view, target_size, pcache,
-                            use_frustum)
-        state["budget"] = bucket_for(int(torch.sum(cut0.render_mask)))
-        state["md"] = {}
-        state["shrink"] = 0
-
-    budget = state["budget"]
-    frame_args = (means3d, scales, quats, opacities, shs, nodes, alive,
-                  world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-                  target_size, boxes, pcache, interp_table)
-    kw = dict(sh_degree=sh_degree, width=width, height=height,
-              n_skybox=n_skybox, k_max=k_max, antialiasing=antialiasing,
-              use_frustum=use_frustum)
-    # dense cuts skip the compaction and the feature gather: render masked
-    # over the whole tree
-    if (interp_table is not None
-            and budget * masked_crossover > cap * headroom):
-        budget = "MASKED"
-        # an undershooting first capacity: the n_dup feedback grows it in
-        # <= 2 frames, while an overshoot would stay (md only grows)
-        md = state["md"].get(budget, max(md_floor, cap // 2))
-        out, n_sel, fb = _stream_frame_masked(
-            *frame_args, cfg=dataclasses.replace(
-                cfg, max_dup=min(md, cfg.max_dup)), **kw)
-    else:
-        md = state["md"].get(budget, max(md_floor, 2 * budget))
-        out, n_sel, fb = _stream_frame_budget(
-            *frame_args, cfg=dataclasses.replace(
-                cfg, max_dup=min(md, cfg.max_dup)), budget=budget, **kw)
-    host, event = _to_host_async(fb)
-
-    # the previous frame's feedback: its work ran while this frame was
-    # being dispatched
-    prev = state.pop("pending", None)
-    if prev is not None:
-        (p_host, p_event), p_budget, p_md = prev
-        if p_event is not None:
-            p_event.synchronize()
-        p_n, p_trunc, p_dup = p_host.tolist()
-        # the capacity hugs the observed entry demand (n_dup: exact when
-        # not truncated, the capacity itself when truncated, so the margin
-        # still grows it); a high-water per bucket, never lowered
-        want_md = _budget_bucket(int(p_dup * 1.0625) + 1, md_floor,
-                                 cfg.max_dup, cfg.max_dup)
-        if p_trunc:
-            want_md = max(want_md, min(p_md * 2, cfg.max_dup))
-            state["n_truncated_frames"] = \
-                state.get("n_truncated_frames", 0) + 1
-        if want_md > state["md"].get(p_budget, 0):
-            state["md"][p_budget] = want_md
-        want = bucket_for(p_n)
-        if want > state["budget"]:
-            state["budget"] = want
+        if "budget" not in state:
+            cut0 = _compute_cut(None, boxes, nodes, means3d, scales, alive,
+                                campos, world_view, target_size, pcache,
+                                use_frustum)
+            state["budget"] = bucket_for(int(torch.sum(cut0.render_mask)))
+            state["md"] = {}
             state["shrink"] = 0
-        elif want < state["budget"]:
-            state["shrink"] += 1
-            if state["shrink"] >= shrink_patience:
+
+        budget = state["budget"]
+        frame_args = (means3d, scales, quats, opacities, shs, nodes, alive,
+                      world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
+                      target_size, boxes, pcache, interp_table)
+        kw = dict(sh_degree=sh_degree, width=width, height=height,
+                  n_skybox=n_skybox, k_max=k_max, antialiasing=antialiasing,
+                  use_frustum=use_frustum)
+        # dense cuts skip the compaction and the feature gather: render masked
+        # over the whole tree
+        if (interp_table is not None
+                and budget * masked_crossover > cap * headroom):
+            budget = "MASKED"
+            # an undershooting first capacity: the n_dup feedback grows it in
+            # <= 2 frames, while an overshoot would stay (md only grows)
+            md = state["md"].get(budget, max(md_floor, cap // 2))
+            out, n_sel, fb = _stream_frame_masked(
+                *frame_args, cfg=dataclasses.replace(
+                    cfg, max_dup=min(md, cfg.max_dup)), **kw)
+        else:
+            md = state["md"].get(budget, max(md_floor, 2 * budget))
+            out, n_sel, fb = _stream_frame_budget(
+                *frame_args, cfg=dataclasses.replace(
+                    cfg, max_dup=min(md, cfg.max_dup)), budget=budget, **kw)
+        host, event = _to_host_async(fb)
+
+        # the previous frame's feedback: its work ran while this frame was
+        # being dispatched
+        prev = state.pop("pending", None)
+        if prev is not None:
+            (p_host, p_event), p_budget, p_md = prev
+            if p_event is not None:
+                p_event.synchronize()
+            p_n, p_trunc, p_dup = p_host.tolist()
+            rows = cap if p_budget == "MASKED" else p_budget
+            counters["lod.nodes_drawn"] += min(p_n, rows)
+            counters["lod.rows_interpolated"] += rows
+            # the capacity hugs the observed entry demand (n_dup: exact when
+            # not truncated, the capacity itself when truncated, so the margin
+            # still grows it); a high-water per bucket, never lowered
+            want_md = _budget_bucket(int(p_dup * 1.0625) + 1, md_floor,
+                                     cfg.max_dup, cfg.max_dup)
+            if p_trunc:
+                want_md = max(want_md, min(p_md * 2, cfg.max_dup))
+                state["n_truncated_frames"] = \
+                    state.get("n_truncated_frames", 0) + 1
+            if want_md > state["md"].get(p_budget, 0):
+                state["md"][p_budget] = want_md
+            want = bucket_for(p_n)
+            if want > state["budget"]:
                 state["budget"] = want
                 state["shrink"] = 0
-        else:
-            state["shrink"] = 0
-    state["pending"] = ((host, event), budget, md)
-    return out, n_sel
+            elif want < state["budget"]:
+                state["shrink"] += 1
+                if state["shrink"] >= shrink_patience:
+                    state["budget"] = want
+                    state["shrink"] = 0
+            else:
+                state["shrink"] = 0
+        state["pending"] = ((host, event), budget, md)
+        return out, n_sel

@@ -33,6 +33,7 @@ from hlod_gaussians_torch.config import OptimizationConfig, RasterizerConfig
 from hlod_gaussians_torch.models import gaussians as gm
 from hlod_gaussians_torch.models.gaussians import GaussianState
 from hlod_gaussians_torch.ops import ssim as ssim_ops
+from hlod_gaussians_torch.utils.metrics import span
 
 
 def _log32(x) -> float:
@@ -97,21 +98,24 @@ def step_loss(
         bg, None, None, xy_offset,
         sh_degree=sh_degree, width=width, height=height, cfg=cfg,
         k_max=k_max, antialiasing=antialiasing)
-    image = out.image
-    if use_exposure and exposure_idx is not None:
-        image = render_mod.apply_exposure(image,
-                                          params["exposure"][exposure_idx])
-    if alpha_mask is not None:
-        image = image * alpha_mask
-    l1 = torch.abs(image - gt_image).mean()
-    ssim_v = ssim_ops.ssim(image, gt_image)
-    photo = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (1.0 - ssim_v)
-    if mono_invdepth is not None:
-        dmask = depth_mask if depth_mask is not None else 1.0
-        depth_l1 = torch.abs((out.invdepth - mono_invdepth) * dmask).mean()
-    else:
-        depth_l1 = torch.zeros((), device=image.device)
-    loss = photo + depth_w * depth_l1
+    with span("hlod.loss"):
+        image = out.image
+        if use_exposure and exposure_idx is not None:
+            image = render_mod.apply_exposure(
+                image, params["exposure"][exposure_idx])
+        if alpha_mask is not None:
+            image = image * alpha_mask
+        l1 = torch.abs(image - gt_image).mean()
+        ssim_v = ssim_ops.ssim(image, gt_image)
+        photo = ((1.0 - opt.lambda_dssim) * l1
+                 + opt.lambda_dssim * (1.0 - ssim_v))
+        if mono_invdepth is not None:
+            dmask = depth_mask if depth_mask is not None else 1.0
+            depth_l1 = torch.abs((out.invdepth - mono_invdepth)
+                                 * dmask).mean()
+        else:
+            depth_l1 = torch.zeros((), device=image.device)
+        loss = photo + depth_w * depth_l1
     return loss, (out, image, l1, ssim_v, depth_l1)
 
 
@@ -137,69 +141,81 @@ def train_step(
     scale_big_gauss: bool = True,
     big_gauss_frac: float = 0.02,
 ) -> Tuple[FlatTrainState, StepAux]:
-    """One optimization step on a single view."""
-    g = ts.gaussians
-    cap = g.capacity
-    depth_w = optim.expon_lr(ts.step, opt.depth_l1_weight_init,
-                             opt.depth_l1_weight_final,
-                             max_steps=opt.iterations)
+    """One optimization step on a single view, inside the `hlod.train_step`
+    span: render_arrays' spans, then `hlod.loss`, `hlod.backward` and
+    `hlod.adam` (densification statistics, masked Adam, the shrink)."""
+    with span("hlod.train_step"):
+        g = ts.gaussians
+        cap = g.capacity
+        depth_w = optim.expon_lr(ts.step, opt.depth_l1_weight_init,
+                                 opt.depth_l1_weight_final,
+                                 max_steps=opt.iterations)
 
-    params = {k: p.detach().requires_grad_(True)
-              for k, p in g.params().items()}
-    # the screen-space gradient (reference screenspace_points)
-    xy_offset = torch.zeros((cap, 2), dtype=torch.float32,
-                            device=g.xyz.device, requires_grad=True)
-    loss, (out, image, l1, ssim_v, depth_l1) = step_loss(
-        g, params, xy_offset, world_view, full_proj, campos, tan_fovx,
-        tan_fovy, gt_image, bg, alpha_mask, mono_invdepth, depth_mask,
-        exposure_idx, depth_w, opt=opt, cfg=cfg, width=width, height=height,
-        k_max=k_max, sh_degree=sh_degree, use_exposure=use_exposure,
-        antialiasing=antialiasing)
-    names = list(params)
-    got = torch.autograd.grad(loss, [params[k] for k in names] + [xy_offset],
-                              allow_unused=True)
-    # a tensor the loss does not reach (exposure without use_exposure) gets
-    # a zero gradient, as under jax.grad
-    grads = {k: torch.zeros_like(params[k]) if gk is None else gk
-             for k, gk in zip(names, got)}
-    xy_grad = got[-1] if got[-1] is not None else torch.zeros_like(xy_offset)
-    params = {k: p.detach() for k, p in params.items()}
+        params = {k: p.detach().requires_grad_(True)
+                  for k, p in g.params().items()}
+        # the screen-space gradient (reference screenspace_points)
+        xy_offset = torch.zeros((cap, 2), dtype=torch.float32,
+                                device=g.xyz.device, requires_grad=True)
+        loss, (out, image, l1, ssim_v, depth_l1) = step_loss(
+            g, params, xy_offset, world_view, full_proj, campos, tan_fovx,
+            tan_fovy, gt_image, bg, alpha_mask, mono_invdepth, depth_mask,
+            exposure_idx, depth_w, opt=opt, cfg=cfg, width=width,
+            height=height, k_max=k_max, sh_degree=sh_degree,
+            use_exposure=use_exposure, antialiasing=antialiasing)
+        names = list(params)
+        with span("hlod.backward"):
+            got = torch.autograd.grad(
+                loss, [params[k] for k in names] + [xy_offset],
+                allow_unused=True)
+        # a tensor the loss does not reach (exposure without use_exposure)
+        # gets a zero gradient, as under jax.grad
+        grads = {k: torch.zeros_like(params[k]) if gk is None else gk
+                 for k, gk in zip(names, got)}
+        xy_grad = (got[-1] if got[-1] is not None
+                   else torch.zeros_like(xy_offset))
+        params = {k: p.detach() for k, p in params.items()}
 
-    if skybox_locked:
-        sky = g.skybox_mask
-        for k in ("xyz", "quat", "f_dc", "f_rest", "opacity_logit",
-                  "log_scale"):
-            gk = grads[k]
-            grads[k] = torch.where(sky.reshape((cap,) + (1,) * (gk.ndim - 1)),
-                                   torch.zeros_like(gk), gk)
+        if skybox_locked:
+            sky = g.skybox_mask
+            for k in ("xyz", "quat", "f_dc", "f_rest", "opacity_logit",
+                      "log_scale"):
+                gk = grads[k]
+                grads[k] = torch.where(
+                    sky.reshape((cap,) + (1,) * (gk.ndim - 1)),
+                    torch.zeros_like(gk), gk)
 
-    # densification stats (scene/gaussian_model.py:1522-1530): running MAX
-    # of screen-space gradient norms over visible rows; radii likewise
-    visible = out.visible
-    g2d = torch.linalg.vector_norm(xy_grad, dim=-1)
-    xyz_accum = torch.where(visible, torch.maximum(ts.xyz_grad_accum, g2d),
-                            ts.xyz_grad_accum)
-    denom = ts.denom + visible.to(torch.int32)
-    max_radii = torch.where(
-        visible, torch.maximum(ts.max_radii, out.radii.to(torch.float32)),
-        ts.max_radii)
+        with span("hlod.adam"):
+            # densification stats (scene/gaussian_model.py:1522-1530):
+            # running MAX of screen-space gradient norms over visible rows;
+            # radii likewise
+            visible = out.visible
+            g2d = torch.linalg.vector_norm(xy_grad, dim=-1)
+            xyz_accum = torch.where(
+                visible, torch.maximum(ts.xyz_grad_accum, g2d),
+                ts.xyz_grad_accum)
+            denom = ts.denom + visible.to(torch.int32)
+            max_radii = torch.where(
+                visible,
+                torch.maximum(ts.max_radii, out.radii.to(torch.float32)),
+                ts.max_radii)
 
-    lrs = optim.param_lrs(opt, ts.step, scene_extent)
-    new_params, adam = optim.sparse_adam_update(params, grads, ts.adam, lrs,
-                                                visible=visible)
-    # big-Gaussian shrink (train_single.py:180-186)
-    if scale_big_gauss:
-        new_params = shrink_big_gaussians(new_params, g, scene_extent,
-                                          big_gauss_frac)
+            lrs = optim.param_lrs(opt, ts.step, scene_extent)
+            new_params, adam = optim.sparse_adam_update(
+                params, grads, ts.adam, lrs, visible=visible)
+            # big-Gaussian shrink (train_single.py:180-186)
+            if scale_big_gauss:
+                new_params = shrink_big_gaussians(new_params, g, scene_extent,
+                                                  big_gauss_frac)
 
-    new_ts = FlatTrainState(
-        gaussians=g.replace_params(new_params), adam=adam,
-        xyz_grad_accum=xyz_accum, denom=denom, max_radii=max_radii,
-        step=ts.step + 1)
-    aux = StepAux(loss=loss.detach(), l1=l1.detach(), ssim=ssim_v.detach(),
-                  depth_l1=depth_l1.detach(), image=image.detach(),
-                  n_visible=torch.sum(visible), truncated=out.truncated)
-    return new_ts, aux
+            new_ts = FlatTrainState(
+                gaussians=g.replace_params(new_params), adam=adam,
+                xyz_grad_accum=xyz_accum, denom=denom, max_radii=max_radii,
+                step=ts.step + 1)
+        aux = StepAux(loss=loss.detach(), l1=l1.detach(),
+                      ssim=ssim_v.detach(), depth_l1=depth_l1.detach(),
+                      image=image.detach(), n_visible=torch.sum(visible),
+                      truncated=out.truncated)
+        return new_ts, aux
 
 
 def _scatter_rows(dst, rows, src):

@@ -1,20 +1,47 @@
-"""Metrics logging + lightweight section timers (port of
-hlod_gaussians_tpu/utils/metrics.py).
+"""Metrics logging (port of hlod_gaussians_tpu/utils/metrics.py's JSONL
+stream) and the port's own tracing: spans and counters.
 
-Replaces the reference's TensorBoard SummaryWriter + manual clock() pairs
-(train_post.py:46-56,650-673): a JSONL metrics stream, wall-clock section
-timers and device-memory snapshots.
+`MetricsLogger` replaces the reference's TensorBoard SummaryWriter
+(train_post.py:46-56, 650-673) with a JSONL metrics stream.
+
+`span(name)` marks a stretch of host code on torch.profiler's clock. The
+port opens `hlod.*` spans inside its entry points: `hlod.train_step`
+(train/flat.py) around `hlod.project`, `hlod.bin` and `hlod.blend`
+(render.render_arrays), `hlod.loss`, `hlod.backward` and `hlod.adam`;
+`hlod.lod_stream` (render.render_lod_stream) around `hlod.cut`,
+`hlod.compact`, `hlod.interp` and render_arrays' three. A span records
+only while a profiler runs, so any `torch.profiler.profile` over the
+program shows them; there is no switch.
+
+`counters` adds up, from process start, quantities the program already
+holds on the host: render_lod_stream adds each frame's feedback as it
+reads it, `lod.nodes_drawn` (the cut's nodes drawn) and
+`lod.rows_interpolated` (the rows the frame's interpolation lerped).
 """
 
 from __future__ import annotations
 
-import contextlib
+import collections
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Optional
 
-import torch
+from torch._C._profiler import _RecordFunctionFast
+
+counters: collections.Counter = collections.Counter()
+
+
+def span(name: str):
+    """A context manager that records `name` over its block, on the calling
+    thread, while a torch.profiler runs; about a microsecond otherwise.
+
+    It is a host-side record (profiler scope FUNCTION, not USER_SCOPE as
+    `torch.profiler.record_function` opens), so the profiler adds no
+    device-side annotation for it and the device timeline keeps only
+    kernels, copies and fills. Not for an autograd Function's backward,
+    which the engine runs on another thread."""
+    return _RecordFunctionFast(name)
 
 
 class MetricsLogger:
@@ -41,36 +68,3 @@ class MetricsLogger:
         if self._f:
             self._f.close()
             self._f = None
-
-
-class SectionTimers:
-    """Named wall-clock accumulators (the reference's global clock() pairs,
-    train_post.py:46-56). Host clock: time device work only around code
-    that ends in a synchronize."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> Dict[str, float]:
-        return {k: round(v, 4) for k, v in self.totals.items()}
-
-
-def device_memory_stats() -> Dict[str, int]:
-    """Bytes allocated on each CUDA device (the reference's peak-VRAM
-    tracking, train_post.py:495-496); empty without a card."""
-    if not torch.cuda.is_available():
-        return {}
-    return {f"cuda:{i}": int(torch.cuda.memory_stats(i).get(
-        "allocated_bytes.all.current", 0))
-        for i in range(torch.cuda.device_count())}

@@ -11,8 +11,7 @@ chip_smoke.py, and takes the flat training step of chip_smoke.py
 (train.flat.train_step on the perturbed bench scene at 1080p). With
 ``--path lod_stream`` it builds chip_smoke.py's full-size LOD bench tree
 (1,048,575 nodes, SH 3) and profiles render_lod_stream at tau 0 and tau 15
-over the 26 bench cameras, after 6 warm-up frames, and times the stages of
-one frame of each (cut, interpolation, projection + SH, binning, blend).
+over the 26 bench cameras, after 6 warm-up frames.
 With ``--path post`` it builds chip_smoke.py's post-optimization bench tree
 (4,194,303 nodes, SH 1), perturbs it as phase [12] does and profiles
 train.post.post_train_step over the 40-view 1080p orbit (each step's SPT
@@ -28,8 +27,15 @@ Each path runs under torch.profiler
 and prints: the CUDA-event time per frame (or step), the host wall time,
 the device busy time (union of CUDA kernel intervals), the busy share of
 the CUDA-event window, kernel launches per frame, and the kernels with the
-most device time. Needs a
-CUDA device.
+most device time. Then, from the same profile, a table of the program's
+`hlod.*` spans (utils/metrics.span: cut, compaction, interpolation,
+projection + SH, binning, blend, loss, backward, Adam and the entry
+points): each span's host ms a frame, whole and less its nested spans,
+and its device ms a frame through the profiler's launch correlation
+(`FunctionEvent.device_time_total`, whole and less its nested spans),
+with the kernels that take most of its own device time. Kernels that the
+autograd engine launches from its device thread (the backward pass) fall
+outside every span. Needs a CUDA device.
 """
 
 import dataclasses
@@ -87,28 +93,74 @@ def profile(name, serve, frames):
     if not kernels:
         print(f"{name}: device busy time not measured (the profiler "
               "recorded no CUDA kernels)")
+    else:
+        print(f"{name}: device busy {busy_ms / frames:.3f} ms/frame = "
+              f"{busy_ms / window_ms:.3f} of the window (idle "
+              f"{1 - busy_ms / window_ms:.3f}); "
+              f"{len(kernels) / frames:.1f} kernel launches per frame")
+        for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"    {ms / frames:8.4f} ms/frame  {k[:110]}")
+    span_table(name, prof, frames)
+
+
+def _inside(e):
+    """(the `hlod.*` spans nested directly in event e, the events between
+    e and them)."""
+    nested, own, todo = [], [], list(e.cpu_children)
+    while todo:
+        c = todo.pop()
+        if c.name.startswith("hlod."):
+            nested.append(c)
+        else:
+            own.append(c)
+            todo.extend(c.cpu_children)
+    return nested, own
+
+
+def span_table(name, prof, frames):
+    """Per `hlod.*` span name, a frame's host ms and device ms, each whole
+    and self (less the nested spans), and the kernels with most of the
+    span's self device time."""
+    rows = defaultdict(lambda: [0, 0.0, 0.0, 0.0, 0.0])
+    kernels = defaultdict(lambda: defaultdict(float))
+    for e in prof.events():
+        if not e.name.startswith("hlod."):
+            continue
+        nested, own = _inside(e)
+        host = e.time_range.elapsed_us()
+        r = rows[e.name]
+        r[0] += 1
+        r[1] += host
+        r[2] += host - sum(c.time_range.elapsed_us() for c in nested)
+        r[3] += e.device_time_total
+        r[4] += e.device_time_total - sum(c.device_time_total
+                                          for c in nested)
+        for c in [e] + own:
+            for k in c.kernels:
+                kernels[e.name][k.name] += k.duration
+    if not rows:
+        print(f"{name}: no hlod.* spans in the profile")
         return
-    print(f"{name}: device busy {busy_ms / frames:.3f} ms/frame = "
-          f"{busy_ms / window_ms:.3f} of the window (idle "
-          f"{1 - busy_ms / window_ms:.3f}); {len(kernels) / frames:.1f} "
-          "kernel launches per frame")
-    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {ms / frames:8.4f} ms/frame  {k[:110]}")
+    print(f"{name}: spans per frame (ms): calls, host whole / self, device "
+          "whole / self, top kernels of the span's self device time")
+    for span, (n, h, hs, d, ds) in sorted(rows.items(),
+                                          key=lambda kv: -kv[1][2]):
+        print(f"    {span:18s} {n / frames:5.2f} {h / 1e3 / frames:9.3f} "
+              f"{hs / 1e3 / frames:9.3f} {d / 1e3 / frames:9.3f} "
+              f"{ds / 1e3 / frames:9.3f}")
+        top = sorted(kernels[span].items(), key=lambda kv: -kv[1])[:4]
+        for k, us in top:
+            print(f"        {us / 1e3 / frames:8.4f}  {k[:100]}")
 
 
 def lod_stream_profiles(dev, frames):
-    """render_lod_stream on the full-size bench tree at tau 0 and 15, and
-    the stage split of one frame of each."""
+    """render_lod_stream on the full-size bench tree at tau 0 and 15."""
     import torch
-    from chip_smoke import (cuda_time_ms, lod_bench_camera, lod_bench_tree,
-                            lod_target)
+    from chip_smoke import lod_bench_camera, lod_bench_tree, lod_target
     from hlod_gaussians_torch import render
     from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.hierarchy import cut as cut_mod
     from hlod_gaussians_torch.models import gaussians as gm
-    from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
-    from hlod_gaussians_torch.ops.binning import bin_gaussians
-    from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
 
     width, height = 1920, 1080
     state, _, build_s, _ = lod_bench_tree(dev)
@@ -150,62 +202,6 @@ def lod_stream_profiles(dev, frames):
               f"{'masked' if masked else 'budgeted'}, budget {st['budget']}, "
               f"md {md}, n_truncated_frames "
               f"{st.get('n_truncated_frames', 0)}")
-
-        # the stages of one frame on the path the stream took (camera 0)
-        cam = cams[0]
-        stages = {}
-        cut = cut_mod.expand_to_size_dynamic(
-            state.nodes, act.means3d, max_scale, state.alive, cam.campos,
-            cam.world_view[:3, 2], target, pcache, use_frustum=False)
-        stages["cut"] = cuda_time_ms(lambda: cut_mod.expand_to_size_dynamic(
-            state.nodes, act.means3d, max_scale, state.alive, cam.campos,
-            cam.world_view[:3, 2], target, pcache, use_frustum=False), 10)
-        mask = cut.render_mask
-        # (interpolated rows, valid, ts, kids) as render_lod_masked and
-        # render_lod hand them to render_arrays
-        if masked:
-            def interp():
-                return (cut_mod.interpolate_all_masked(itab, cut.ts, mask),
-                        mask, torch.where(mask, cut.ts,
-                                          torch.ones_like(cut.ts)),
-                        torch.clamp_min(cut.kids, 1))
-        else:
-            def interp():
-                idx, valid = render.compact_cut(mask, cut.size, st["budget"])
-                return (cut_mod.interpolate_from_table(itab, idx,
-                                                       cut.ts[idx]),
-                        valid, cut.ts[idx], cut.kids[idx])
-        stages["compaction + interpolation"] = cuda_time_ms(interp, 10)
-        g, valid, ts, kids = interp()
-        quats = g["quats"] / torch.linalg.norm(
-            g["quats"], dim=-1, keepdim=True).clamp_min(1e-12)
-
-        def project():
-            p = gaussian_math.project_gaussians(
-                g["means3d"], gaussian_math.compute_cov3d(g["scales"],
-                                                          quats),
-                g["opacities"], cam.world_view, cam.full_proj, width,
-                height, cam.focal_x, cam.focal_y, cam.tan_fovx,
-                cam.tan_fovy, dilation=cfg.dilation, near=cfg.near,
-                valid_in=valid, big_limit=cfg.big_limit,
-                max_scale=torch.max(g["scales"], dim=-1).values)
-            return p, sh_ops.sh_color(3, g["shs"], g["means3d"], cam.campos)
-        stages["projection + SH"] = cuda_time_ms(project, 10)
-        p, color = project()
-
-        def binning():
-            return bin_gaussians(p.xy, p.depth, p.radius, p.valid, width,
-                                 height, 32, 32, md, ext=p.ext,
-                                 reff2=p.reff2)
-        stages["binning"] = cuda_time_ms(binning, 10)
-        bins = binning()
-        stages["blend (B1 + features)"] = cuda_time_ms(lambda: rasterize_tiles(
-            bins, p.xy, p.conic, p.opacity, color,
-            1.0 / torch.clamp_min(p.depth, 1e-6), bg, ts, kids, width=width,
-            height=height, tile_w=32, tile_h=32, inference=True), 10)
-        print(f"lod_stream tau {tau:g} stages (CUDA events, median of 10): "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()),
-              flush=True)
 
 
 def post_profiles(dev, frames):

@@ -472,8 +472,9 @@ def test_post_optimize_mcmc_rounds_keep_the_tree():
 
 
 def test_metrics_match_jax(tmp_path):
-    """MetricsLogger writes the JAX package's JSONL lines; SectionTimers
-    count and sum their sections; no card, no memory stats."""
+    """MetricsLogger writes the JAX package's JSONL lines; a span records
+    one host event under the profiler and none without it; the counters
+    add up."""
     from hlod_gaussians_tpu.utils import metrics as jmetrics
     from hlod_gaussians_torch.utils import metrics
     lines = []
@@ -485,10 +486,16 @@ def test_metrics_match_jax(tmp_path):
         log.close()
         lines.append(path.read_text())
     assert lines[0] == lines[1] and lines[0].count("\n") == 2
-    timers = metrics.SectionTimers()
-    for _ in range(3):
-        with timers.section("cut"):
-            pass
-    assert timers.counts == {"cut": 3} and timers.summary()["cut"] >= 0.0
-    if not torch.cuda.is_available():
-        assert metrics.device_memory_stats() == {}
+    from torch.profiler import ProfilerActivity, profile
+    with metrics.span("hlod.untraced"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with metrics.span("hlod.cut"):
+                pass
+    names = [e.name for e in prof.events() if e.name.startswith("hlod.")]
+    assert names == ["hlod.cut"] * 3
+    before = metrics.counters["test.rows"]
+    metrics.counters["test.rows"] += 5
+    metrics.counters["test.rows"] += 2
+    assert metrics.counters["test.rows"] - before == 7
