@@ -70,6 +70,14 @@ Phases (any failure raises and exits non-zero):
   11. kernel B1 at the tau-0 stream frame: against its plain version, the
      bare launch and the wrapper timed, the bound from the frame's
      evaluated, candidate and applied pairs with the LOD alpha's operations.
+  11b. kernel lod_preprocess at the tau-0 serving cell's size (8,388,607
+     heap-ordered rows at SH 3, 4,179,253 leaves drawn, drawn from a seed
+     on the card) against its plain version on the card: valid and radius
+     equal but for boundary rows (at most 1e-5 of the drawn), feature rows
+     to 2e-5; the kernel's time over 20 back-to-back launches, the plain
+     chain's, the byte bound. Phases 5 and 7-10 count its launches by path
+     (one a masked stream or auto frame, none on train_step and the
+     budgeted render_lod).
   12. hierarchy post-optimization at the JAX package's post bench point
      (scripts/offload_bench3.py): build_hierarchy on the card over 2^21
      leaves (4,194,303 nodes, SH 1), the SPT forest, a 40-view 1080p orbit
@@ -137,7 +145,11 @@ Phases (any failure raises and exits non-zero):
      band imbalance; in
      the Gloo world render_tile_parallel against render_arrays and
      render_lod_tile_parallel of the 1,048,575-node tree at tau 3 against
-     render_lod_masked (n_selected equal, 1e-4, untruncated).
+     render_lod_masked through the plain chain the ranks run (n_selected
+     equal, 1e-4, untruncated), and render_lod_masked's lod_preprocess
+     frame against that one (n_selected equal, at most 1e-4 of the pixels
+     past 1e-4 and none past 1e-3: a conic an ulp apart can flip an
+     alpha_min test).
   17. chunk-parallel: two chunk states of 2^19 rows (250,000 points each)
      at 512x512 step through chunk_parallel_step, each held to its own
      train_step (bitwise, as two runs of one train_step are); in the Gloo
@@ -203,6 +215,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SMALL_ATOL = 2e-5
 FRAME_ATOL = 1e-4
 FRAME_NC_SHARE = 1e-4
+# the largest pixel difference of a lod_preprocess frame from the plain
+# chain's at 1080p ([16]): an alpha_min test flipped by ulp-apart conics
+# moves a pixel by one Gaussian's alpha times its colour, a few 1e-4
+FUSED_FRAME_MAX = 1e-3
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 and f32 outside the
 # tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -225,6 +241,15 @@ B2_OPS_NEED, B2_OPS_APPLY = 14, 24
 # two of them transcendental
 OPS_LOD = 10
 B1_BATCH = 32        # entries per shared-memory batch of kernel B1
+# kernel lod_preprocess (csrc/lod_preprocess.cu) at the tau-0 serving cell's
+# size (benchmark/configs/lod-8M-sh3.json): 2^22 leaves in 8,388,607
+# heap-ordered nodes at SH 3, 4,179,253 leaves drawn (the cell's mean). f32
+# operations a drawn row: the lerp (3 x 59), the quaternion's two
+# normalisations and cov3d (about 80), the projection with the EWA
+# covariance, conic, radius and extents (about 200), SH 3 (direction and
+# basis about 55, the sums 2 x 48)
+LODPRE_LEAVES, LODPRE_DRAWN = 1 << 22, 4_179_253
+OPS_LODPRE = 177 + 80 + 200 + 55 + 96
 GRAD_SCALED_ATOL = 3e-4
 TRAIN_STEPS = 8
 # the JAX package's LOD bench tree (bench.py:145-253): 2^19 leaves, a
@@ -1734,11 +1759,13 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
     from hlod_gaussians_torch.hierarchy import cut as cut_mod
     from hlod_gaussians_torch.models import gaussians as gm
     from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
     from hlod_gaussians_torch.ops.rasterize_xla import blend_forward_plain
     from hlod_gaussians_torch.utils.camera import make_camera
     from hlod_gaussians_torch.viewer import maintenance as maint
     kernel = rasterize_cuda.blend_forward
     kernel_b2 = rasterize_cuda.blend_backward
+    fused = {}     # lod_preprocess launches by path
     max_err = 0.0
 
     # ---- 6. full-size LOD: build and round trip ---------------------------
@@ -1773,10 +1800,11 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
         f"warm-up + {STREAM_TIMED} timed frames a tau over 26 cameras")
     lod_cams = [lod_bench_camera(i, width, height, dev) for i in range(26)]
     frames = STREAM_WARM + STREAM_TIMED
-    kernel.launches = kernel_b2.launches = 0
+    kernel.launches = kernel_b2.launches = lod_preprocess.launches = 0
     streams = {tau: stream_frames(lod, lod_cams, tau, frames, kernel)
                for tau in STREAM_TAUS}
     stream_launches, stream_b2 = kernel.launches, kernel_b2.launches
+    fused["lod_stream"] = lod_preprocess.launches
     stream_ms = {}
     for tau, (st, rows, (img, n_sel, trunc)) in streams.items():
         ev = [r[0] for r in rows[STREAM_WARM:]]
@@ -1799,18 +1827,23 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
                                  f"last frame truncated {trunc}")
     if stream_b2 != 0:
         raise AssertionError(f"{stream_b2} B2 launches while streaming")
+    log(f"  lod_preprocess launches {fused['lod_stream']} (the masked "
+        "frames)")
+    if fused["lod_stream"] == 0:
+        raise AssertionError("the tau-0 stream never took the masked path")
 
     # ---- 8. auto and plain ---------------------------------------------------
     log("[8] render_lod_auto against the settled stream, and against the "
         "plain (xla) path")
     md_state = {}
-    kernel.launches = kernel_b2.launches = 0
+    kernel.launches = kernel_b2.launches = lod_preprocess.launches = 0
     last_cam = lod_cams[(frames - 1) % len(lod_cams)]
     auto_out = {}
     for tau in STREAM_TAUS + (3.0,):
         out, n_sel = lod_auto(lod, last_cam, tau, lod["cfg"], md_state)
         auto_out[tau] = (out, n_sel)
     auto_launches, auto_b2 = kernel.launches, kernel_b2.launches
+    fused["lod_auto"] = lod_preprocess.launches
     for tau in STREAM_TAUS:
         (out, n_sel), (img, n_str, _) = auto_out[tau], streams[tau][2]
         err = float((out.image - img).abs().max())
@@ -1819,7 +1852,7 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
         if n_sel != n_str or err > FRAME_ATOL or bool(out.truncated):
             raise AssertionError(f"auto and stream disagree at tau {tau}")
     log(f"  md_state {({k: v for k, v in md_state.items()})}; B1 launches "
-        f"{auto_launches}")
+        f"{auto_launches}, lod_preprocess {fused['lod_auto']}")
     plain_cfg = RasterizerConfig(backend="xla", tile_w=32, tile_h=32,
                                  max_dup=1 << 22)
     for tau in (15.0, 3.0):
@@ -1857,7 +1890,7 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
             raise AssertionError("ground-truth render truncated")
         gts.append(torch.clamp(out.image, 0.0, 1.0))
     warned = []
-    kernel.launches = kernel_b2.launches = 0
+    kernel.launches = kernel_b2.launches = lod_preprocess.launches = 0
     t0 = time.perf_counter()
     table = eval_mod.eval_views(
         lstate, eval_cams, gts, EVAL_TAUS, level_is_tau=True,
@@ -1865,6 +1898,7 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
         cfg=eval_cfg, warn=warned.append)
     eval_s = time.perf_counter() - t0
     eval_launches, eval_b2 = kernel.launches, kernel_b2.launches
+    fused["eval"] = lod_preprocess.launches
     for r in table:
         log(f"  tau {r.level:4.1f}: PSNR {r.psnr:.3f}  SSIM {r.ssim:.4f}  "
             f"GMSD {r.gmsd:.5f}  LPIPS {r.lpips}  mean rendered "
@@ -1896,7 +1930,7 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
         budget=1 << 19, device=dev)
     active = torch.as_tensor(maint.initial_cut(nodes, alive), device=dev)
     moves, sizes = [], []
-    kernel.launches = kernel_b2.launches = 0
+    kernel.launches = kernel_b2.launches = lod_preprocess.launches = 0
     for f in range(MAINT_FRAMES):
         z = 0.5 * min(f, MAINT_MOVING - 1)
         cam = make_camera(np.eye(3), np.array([0.0, 0.0, -z]), 1.2, 0.8, width,
@@ -1921,6 +1955,10 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
             raise AssertionError(f"maintenance frame {f}: truncated or over "
                                  "the budget")
     maint_launches, maint_b2 = kernel.launches, kernel_b2.launches
+    fused["maintenance"] = lod_preprocess.launches
+    if fused["eval"] or fused["maintenance"]:
+        raise AssertionError(f"the budgeted path launched lod_preprocess: "
+                             f"{fused}")
     rule = cut_mod.expand_to_size_dynamic(
         nodes, lact.means3d, max_scale, alive, cam.campos,
         cam.world_view[:3, 2], target, use_frustum=False)
@@ -1993,9 +2031,112 @@ def full_lod_phases(dev, width, height, bg, smi, n_leaves=LOD_LEAVES):
             "eval": eval_launches, "maintenance": maint_launches},
         b2={"lod_stream": stream_b2, "lod_auto": auto_b2, "eval": eval_b2,
             "maintenance": maint_b2},
+        lod_preprocess=fused,
         tau0={"ms": lod_launch_ms, "wrapper_ms": lod_wrap_ms,
               "plain_ms": lod_plain_ms, "bound_ms": lod_bound_ms,
               "bound_by": lod_bound_by})
+
+
+def lod_preprocess_phase(dev, smi):
+    """Phase [11b]: kernel lod_preprocess at the tau-0 cell's size against
+    its plain version (the chain as separate PyTorch kernels) on the card:
+    valid and radius equal but for a share of boundary rows, the valid
+    rows' feature rows to rounding; the kernel's time (CUDA events over 20
+    back-to-back launches), the plain chain's, and the byte bound."""
+    import torch
+    from hlod_gaussians_torch.hierarchy import cut as cut_mod
+    from hlod_gaussians_torch.models.gaussians import NODE_PARENT
+    from hlod_gaussians_torch.ops import lod_preprocess as lp
+    from hlod_gaussians_torch.utils.camera import make_camera
+    n = LODPRE_LEAVES
+    c = 2 * n - 1
+    log(f"[11b] kernel lod_preprocess at the tau-0 cell's size: {c} rows "
+        f"at SH 3, about {LODPRE_DRAWN} drawn")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    pos = randn(c, 3) * 10.0
+    pos[:, 2] += 30.0
+    sh = randn(c, 16, 3) * 0.05
+    sh[:, 0] *= 6.0
+    params = dict(means3d=pos, scales=torch.exp(randn(c, 3) * 0.3 - 4.24),
+                  quats=randn(c, 4),
+                  opacities=torch.rand((c,), generator=g, device=dev) * 0.6
+                  + 0.3, shs=sh)
+    nodes = torch.zeros((c, 6), dtype=torch.int32, device=dev)
+    nodes[:, NODE_PARENT] = (torch.arange(c, device=dev) - 1) // 2
+    table = cut_mod.build_interp_table(params, nodes)
+    del params, pos, sh
+    leaf = torch.arange(c, device=dev) >= n - 1
+    mask = leaf & (torch.rand((c,), generator=g, device=dev)
+                   < LODPRE_DRAWN / n)
+    ts = torch.rand((c,), generator=g, device=dev)
+    kids = torch.full((c,), 2, dtype=torch.int32, device=dev)
+    alive = torch.ones((c,), dtype=torch.bool, device=dev)
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, 1920, 1080,
+                      device=dev)
+    args = (table, mask, ts, kids, alive, cam.world_view, cam.full_proj,
+            cam.campos, cam.tan_fovx, cam.tan_fovy)
+    kw = dict(width=1920, height=1080, sh_degree=3)
+    before = lp.lod_preprocess.launches
+    got = lp.lod_preprocess(*args, **kw)
+    torch.cuda.synchronize()
+    if lp.lod_preprocess.launches != before + 1:
+        raise AssertionError("lod_preprocess did not launch")
+    ref = lp.lod_preprocess_plain(*args, **kw)
+    torch.cuda.synchronize()
+    drawn = int(mask.sum())
+    both = got.valid & ref.valid
+    valid_diff = int((got.valid != ref.valid).sum())
+    radius_diff = int((got.radius != ref.radius).sum())
+    err = float(((got.feats - ref.feats)[both].abs()
+                 / ref.feats[both].abs().clamp_min(1.0)).max())
+    log(f"  {drawn} drawn, {int(ref.valid.sum())} valid; rows whose valid "
+        f"differs {valid_diff}, radius {radius_diff}; largest feature "
+        f"error on valid rows {err:.3e} (relative above 1)")
+    if (valid_diff + radius_diff > 1e-5 * drawn or err > 2e-5
+            or not bool(torch.isfinite(got.feats).all())):
+        raise AssertionError("lod_preprocess disagrees with its plain "
+                             "version")
+    del got, ref
+
+    def launches(reps):
+        for _ in range(reps):
+            lp.lod_preprocess(*args, **kw)
+
+    reps = 20
+    ms = cuda_time_ms(lambda: launches(reps), 3, warmup=1) / reps
+    plain_ms = cuda_time_ms(lambda: lp.lod_preprocess_plain(*args, **kw), 3)
+    m = c
+    n_bytes = (drawn * table.feats.shape[1] * 4 + c * (1 + 4) + drawn * 4
+               + m * (48 + 4 + 4 + 1 + 8 + 4))
+    bound_ms, bound_by, parts = bound(n_bytes, OPS_LODPRE * drawn)
+    log(f"  lod_preprocess {ms:.4f} ms ({ms / bound_ms:.2f}x its bound), "
+        f"plain chain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {parts}; {n_bytes} bytes, "
+        f"{OPS_LODPRE} ops a drawn row) [{smi}]")
+    del table
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_rel_err=err, valid_diff=valid_diff,
+                radius_diff=radius_diff,
+                launches=lp.lod_preprocess.launches - before)
+
+
+def lod_preprocess_entry(lpr, launches_by_path):
+    """The kernel table's line for lod_preprocess: the paths' launches and
+    [11b]'s own (its check, warm-up and timed launches)."""
+    return {"name": "lod_preprocess", "route": "cuda",
+            "source": "hlod_gaussians_torch/csrc/lod_preprocess.cu",
+            "replaces": None,
+            "launches": sum(launches_by_path.values()) + lpr["launches"],
+            "launches_by_path": dict(launches_by_path,
+                                     kernel_check=lpr["launches"]),
+            "max_rel_err": lpr["max_rel_err"], "ms": lpr["ms"],
+            "plain_ms": lpr["plain_ms"], "bound_ms": lpr["bound_ms"],
+            "bound_by": lpr["bound_by"], "library_ms": None}
 
 
 def structured_colors(pts):
@@ -3044,6 +3185,20 @@ class ListLogger:
         self.rows.append(kv)
 
 
+def plain_chain_render_lod_masked(*args, **kw):
+    """render.render_lod_masked with its lod_preprocess kernel swapped for
+    the plain chain (lod_preprocess_plain), which the tile-parallel ranks
+    run: phase [16]'s like-for-like reference."""
+    from hlod_gaussians_torch import render
+    from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess_plain
+    kernel = render.lod_preprocess
+    render.lod_preprocess = lod_preprocess_plain
+    try:
+        return render.render_lod_masked(*args, **kw)
+    finally:
+        render.lod_preprocess = kernel
+
+
 def gloo_rank(rank, n, root, chunk_bitwise, device="cuda"):
     """A rank of the Gloo world of two on the card: phase [15]'s step with
     one view a rank, [16]'s banded frames, [17]'s K = 4 chunks and [18]'s
@@ -3132,14 +3287,22 @@ def gloo_rank(rank, n, root, chunk_bitwise, device="cuda"):
             lambda: tp.render_lod_tile_parallel(
                 *largs, tile_mesh, None, pcache, itab, sh_degree=3,
                 width=FRAME[0], height=FRAME[1], cfg=lod_cfg, use_frustum=False))
-        one, n_one = render.render_lod_masked(
+        one, n_one = plain_chain_render_lod_masked(
             *largs, None, pcache, None, itab, sh_degree=3, width=FRAME[0],
             height=FRAME[1], cfg=lod_cfg, use_frustum=False)
+        fused, n_fused = render.render_lod_masked(
+            *largs, None, pcache, None, itab, sh_degree=3, width=FRAME[0],
+            height=FRAME[1], cfg=lod_cfg, use_frustum=False)
+    off = (fused.image - one.image).abs()
     res["tile_lod"] = dict(err=float((img - one.image).abs().max()),
                            n_selected=int(n_sel), n_one=int(n_one),
+                           n_fused=int(n_fused),
+                           fused_err=float(off.max()),
+                           fused_share=float((off > FRAME_ATOL).any(
+                               dim=0).float().mean()),
                            truncated=bool(trunc) or bool(one.truncated),
                            launches=launches, seconds=sec)
-    del lstate, lact, pcache, itab, largs, img, one
+    del lstate, lact, pcache, itab, largs, img, one, fused, off
     torch.cuda.empty_cache()
 
     # [17] K = 4 chunks, two a rank
@@ -3265,7 +3428,10 @@ def gloo_phases(dev, smi, root, world, chunk_res):
         if (tf["err"] > FRAME_ATOL or tf["truncated"]
                 or tf["shape"] != [3, FRAME[1], FRAME[0]]
                 or tl["err"] > FRAME_ATOL
+                or tl["fused_share"] > FRAME_NC_SHARE
+                or tl["fused_err"] > FUSED_FRAME_MAX
                 or tl["truncated"] or tl["n_selected"] != tl["n_one"]
+                or tl["n_fused"] != tl["n_one"]
                 or tf["launches"] != [1, 0] or tl["launches"] != [1, 0]):
             raise AssertionError(f"tile-parallel frames: {r}")
     rows = -(-FRAME[1] // 32)
@@ -3273,9 +3439,13 @@ def gloo_phases(dev, smi, root, world, chunk_res):
         f"rows, 2 bands of {rows // 2}) vs render_arrays: max|d| "
         f"{max(r['tile_flat']['err'] for r in ranks):.3e}; "
         f"render_lod_tile_parallel of the {2 * LOD_LEAVES - 1}-node tree at "
-        f"tau {LOD_TILE_TAU} vs render_lod_masked: n_selected "
-        f"{ranks[0]['tile_lod']['n_selected']} (equal), max|d| "
-        f"{max(r['tile_lod']['err'] for r in ranks):.3e}; one B1 launch a "
+        f"tau {LOD_TILE_TAU} vs render_lod_masked through the plain chain: "
+        f"n_selected {ranks[0]['tile_lod']['n_selected']} (equal), max|d| "
+        f"{max(r['tile_lod']['err'] for r in ranks):.3e}; the "
+        f"lod_preprocess kernel's frame vs the plain chain's: max|d| "
+        f"{ranks[0]['tile_lod']['fused_err']:.3e}, share of pixels past "
+        f"{FRAME_ATOL:g} {ranks[0]['tile_lod']['fused_share']:.3e}; one B1 "
+        f"launch a "
         f"rank a frame; frame host wall flat "
         f"{ranks[0]['tile_flat']['seconds'] * 1e3:.1f} / LOD "
         f"{ranks[0]['tile_lod']['seconds'] * 1e3:.1f} ms (rank 0) [{smi}]")
@@ -4154,8 +4324,10 @@ def main():
     from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
     from hlod_gaussians_torch.ops import rasterize_cuda
     from hlod_gaussians_torch.ops.binning import bin_gaussians
+    from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
     from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
     from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
+                                                        blend_features,
                                                         blend_forward_plain)
     from hlod_gaussians_torch.train import flat
     from hlod_gaussians_torch.train.post import create_from_dhier
@@ -4385,9 +4557,9 @@ def main():
         p0.xy, p0.depth, p0.radius, p0.valid, width, height, 32, 32,
         cfg.max_dup, ext=p0.ext, reff2=p0.reff2), 10)
     blend_ms = cuda_time_ms(lambda: rasterize_tiles(
-        bins0, p0.xy, p0.conic, p0.opacity, color0,
-        1.0 / torch.clamp_min(p0.depth, 1e-6), bg, width=width,
-        height=height, tile_w=32, tile_h=32), 10)
+        bins0, blend_features(p0.xy, p0.conic, p0.opacity, color0,
+                              1.0 / torch.clamp_min(p0.depth, 1e-6)),
+        bg, width=width, height=height, tile_w=32, tile_h=32), 10)
     log(f"  frame median {statistics.median(frame_ms):.3f} ms on the card "
         f"(CUDA events, {len(frame_ms)} frames), host wall median "
         f"{statistics.median(host):.3f} ms")
@@ -4477,8 +4649,13 @@ def main():
     cam_args = (cam0.world_view, cam0.full_proj, cam0.campos, cam0.tan_fovx,
                 cam0.tan_fovy)
     kernel.launches = kernel_b2.launches = 0
+    fused_before = lod_preprocess.launches
     tr = train_phase(ts, cam_args, gt, bg, cfg, width, height)
     train_launches, train_b2 = tr["launches"]
+    train_lp = lod_preprocess.launches - fused_before
+    if train_lp:
+        raise AssertionError(f"train_step launched lod_preprocess "
+                             f"{train_lp} times")
     log(f"  losses {tr['losses']}; {tr['n_visible']} visible; launches B1 "
         f"{train_launches}, B2 {train_b2}")
     log(f"  step median {statistics.median(tr['step_ms']):.3f} ms on the "
@@ -4494,6 +4671,7 @@ def main():
     lodr = full_lod_phases(dev, width, height, bg, smi)
     max_err = max(max_err, lodr["max_err"])
     torch.cuda.empty_cache()
+    lpr = lod_preprocess_phase(dev, smi)
 
     postr = post_phase(dev, width, height, smi)
     max_err = max(max_err, postr["b1_err"])
@@ -4616,7 +4794,8 @@ def main():
         "post_frame": postr["b2_frame"],
         "offload_frame": offr["b2_frame"],
         "pipeline_frame": piper["b2_frame"],
-    }]}))
+    }, lod_preprocess_entry(lpr, dict(lodr["lod_preprocess"],
+                                      train=train_lp))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

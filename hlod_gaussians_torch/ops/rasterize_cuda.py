@@ -1,5 +1,5 @@
 """Kernel wrappers: the hand-written CUDA blend forward (B1) and backward
-(B2).
+(B2), and the build of every kernel source of the port.
 
 B1 `blend_forward` replaces hlod_gaussians_tpu/ops/rasterize_pallas.py
 ::blend_forward, B2 `blend_backward` replaces ::blend_backward (the Pallas
@@ -12,11 +12,13 @@ pixel count is not a multiple of 32); B2 only tiles of a multiple of 32
 pixels.
 
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -O3
--shared -Xcompiler -fPIC` compiles each source into a shared library with a
-plain C launcher under `hlod_gaussians_torch/_build/`, named by a hash of
-that source and the flags, and loads it with ctypes. `build()` starts one
-nvcc per missing library, all at once. Nothing is built or imported while
-this module is imported.
+-shared -Xcompiler -fPIC` compiles each source of `SOURCES` (the blend
+kernels and `csrc/lod_preprocess.cu`, whose wrapper is
+`ops/lod_preprocess.py`) into a shared library with a plain C launcher
+under `hlod_gaussians_torch/_build/`, named by a hash of that source and
+its flags, and loads it with ctypes. `build()` starts one nvcc per missing
+library, all at once. Nothing is built or imported while this module is
+imported.
 
 Dispatch: on CPU tensors each wrapper runs its plain version
 (`rasterize_xla.blend_forward_plain` / `blend_backward_plain`); on CUDA
@@ -45,10 +47,24 @@ from hlod_gaussians_torch.ops.rasterize_xla import (N_FEATS,
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("blend_forward", "blend_backward")}
+           for name in ("blend_forward", "blend_backward", "lod_preprocess")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# lod_preprocess follows its plain version's rounding op by op: no FMAs
+EXTRA_FLAGS = {"lod_preprocess": ("-fmad=false",)}
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each library's `<name>_launch` signature
+ARGTYPES = {
+    "blend_forward": [_p] * 4 + [_i] * 6 + [_f, _f, _i] + [_p] * 5,
+    "blend_backward": [_p] * 8 + [_i] * 6 + [_f, _i, _p, _p],
+    "lod_preprocess": ([_p] * 10 + [_f, _f] + [_i] * 6 + [_f] * 4 + [_i]
+                       + [_p] * 7),
+}
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -60,12 +76,13 @@ def _nvcc() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       "the CUDA blend kernels cannot be built")
+                       "the CUDA kernels cannot be built")
 
 
 def _lib_path(name: str) -> Path:
     src = SOURCES[name].read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(_flags(name)).encode()
+    key = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{key}.so"
 
 
@@ -82,7 +99,7 @@ def build(names=tuple(SOURCES)) -> dict:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             jobs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                [nvcc, *_flags(name), "-o", tmp, str(SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []
         for name, (tmp, proc) in jobs.items():
@@ -114,14 +131,8 @@ def build(names=tuple(SOURCES)) -> dict:
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build((name,))[name][0]))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     launch = getattr(lib, f"{name}_launch")
-    if name == "blend_forward":
-        launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, i, p, p, p, p,
-                           p]
-    else:
-        launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p,
-                           p]
+    launch.argtypes = ARGTYPES[name]
     launch.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]

@@ -247,29 +247,23 @@ def blend_backward_plain(feats, sorted_gid, tile_starts, tile_counts,
 
 def rasterize_scan(
     bins: TileBins,
-    xy: torch.Tensor,          # [N,2] pixel-space means
-    conic: torch.Tensor,       # [N,3]
-    opacity: torch.Tensor,     # [N]
-    color: torch.Tensor,       # [N,3]
-    invdepth_g: torch.Tensor,  # [N] per-Gaussian inverse depth (1/view_z)
+    feats: torch.Tensor,       # [N, 12] blend_features
     bg: torch.Tensor,          # [3]
-    ts: Optional[torch.Tensor] = None,    # [N] interpolation weights
-    kids: Optional[torch.Tensor] = None,  # [N] sibling counts
     *,
     width: int, height: int, tile_w: int, tile_h: int, k_max: int,
+    use_lod: bool = False,
     t_eps: float = 1e-4, alpha_min: float = 1.0 / 255.0,
 ) -> RenderOut:
     """The backend="xla" render: plain blend of the first k_max entries per
     tile (rounded up to whole 32-entry groups, as the JAX scan's remat
-    chunks are) with `truncated` raised when a tile holds more."""
+    chunks are) with `truncated` raised when a tile holds more;
+    ``use_lod`` as for ops/rasterize.py::rasterize_tiles."""
     chunk = max(1, min(32, k_max))
     k_bound = -(-k_max // chunk) * chunk
-    feats = blend_features(xy, conic, opacity, color, invdepth_g, ts, kids)
     img4, final_t, n_contrib, seen = blend_forward_plain(
         feats, bins.sorted_gid, bins.tile_starts, bins.tile_counts,
         width=width, height=height, tile_w=tile_w, tile_h=tile_h,
-        t_eps=t_eps, alpha_min=alpha_min,
-        use_lod=ts is not None and kids is not None, want_seen=True,
+        t_eps=t_eps, alpha_min=alpha_min, use_lod=use_lod, want_seen=True,
         k_max=k_bound)
     truncated = torch.any(bins.tile_counts > k_bound) | bins.overflow
     return RenderOut(image=img4[:3] + final_t[None] * bg[:, None, None],

@@ -15,8 +15,11 @@ kernel B1 and differentiates through kernel B2 (ops/rasterize.py); the xla
 backend blends with the plain scan and differentiates through autograd.
 
 Spans (utils/metrics.span): render_arrays opens `hlod.project`, `hlod.bin`
-and `hlod.blend`; the LOD entry points `hlod.cut`, `hlod.compact` (the
-budgeted path) and `hlod.interp`; render_lod_stream `hlod.lod_stream`
+and `hlod.blend` (B1's feature rows and the blend), and so does
+render_lod_masked, whose `hlod.project` holds the lod_preprocess pass (the
+lerp and the feature rows included); the LOD entry points
+`hlod.cut`, `hlod.compact` (the budgeted path) and `hlod.interp` (on the
+masked path only the table's lookup); render_lod_stream `hlod.lod_stream`
 around its frame, whose feedback it adds to `counters` as it reads it.
 """
 
@@ -33,8 +36,11 @@ from hlod_gaussians_torch.hierarchy import cut as cut_mod
 from hlod_gaussians_torch.models.gaussians import NODE_DEPTH, NODE_PARENT
 from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
 from hlod_gaussians_torch.ops.binning import bin_gaussians, tile_grid
+from hlod_gaussians_torch.ops import lod_preprocess as lod_preprocess_ops
+from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
 from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
-from hlod_gaussians_torch.ops.rasterize_xla import rasterize_scan
+from hlod_gaussians_torch.ops.rasterize_xla import (blend_features,
+                                                    rasterize_scan)
 from hlod_gaussians_torch.utils.metrics import counters, span
 
 
@@ -84,8 +90,6 @@ def render_arrays(
     horizontal bands of whole tile rows (tile-parallel rendering): the
     per-pixel outputs are [band_h, W], band_h = (tile rows // n) * tile_h,
     and the band's entries are capped at max_dup // n."""
-    if cfg.backend not in ("pallas", "xla"):
-        raise ValueError(f"unknown backend {cfg.backend!r}")
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
 
@@ -99,43 +103,60 @@ def render_arrays(
             valid_in=valid, big_limit=cfg.big_limit, max_scale=max_scale)
 
         xy = proj.xy if xy_offset is None else proj.xy + xy_offset
-        color = sh_ops.sh_color(sh_degree, shs, means3d, campos)
-        invdepth_g = 1.0 / torch.clamp_min(proj.depth, 1e-6)
-    ts_r, kids_r = (ts, kids) if use_lod else (None, None)
-
-    with span("hlod.bin"):
         valid_b, height_b, max_dup = proj.valid, height, cfg.max_dup
         if band is not None:
             xy, valid_b, height_b = _band_local(xy, proj, band, width,
                                                 height, cfg)
             max_dup = cfg.max_dup // band[1]
+        color = sh_ops.sh_color(sh_degree, shs, means3d, campos)
+        invdepth_g = 1.0 / torch.clamp_min(proj.depth, 1e-6)
+    use_lod = use_lod and ts is not None and kids is not None
+    return _bin_and_blend(
+        xy, proj.depth, proj.radius, proj.valid, proj.ext, proj.reff2,
+        lambda: blend_features(xy, proj.conic, proj.opacity, color,
+                               invdepth_g, *((ts, kids) if use_lod else ())),
+        bg, width=width, height=height_b, cfg=cfg, k_max=k_max,
+        use_lod=use_lod, want_seen=want_seen, bin_valid=valid_b,
+        max_dup=max_dup)
+
+
+def _bin_and_blend(xy, depth, radius, visible, ext, reff2, features, bg, *,
+                   width, height, cfg, k_max, use_lod, want_seen=False,
+                   bin_valid=None, max_dup=None) -> RenderResult:
+    """The tail of every render: bin the rows in `hlod.bin`, then make
+    their feature rows (``features()``, blend_features' layout; made after
+    the binning, so a new table never sits beside its temporaries) and
+    blend them in `hlod.blend`. ``visible`` is the projection's valid;
+    ``bin_valid`` (default ``visible``) the rows binned, ``max_dup``
+    (default cfg.max_dup) the entry capacity, which a band narrows."""
+    if cfg.backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    with span("hlod.bin"):
         # tight alpha-aware coverage on the production path; the scan path
         # keeps the reference's circle rects
         tight = cfg.backend == "pallas" and cfg.tight_binning
         bins = bin_gaussians(
-            xy.detach(), proj.depth.detach(), proj.radius, valid_b,
-            width, height_b, cfg.tile_w, cfg.tile_h, max_dup,
-            ext=proj.ext.detach() if tight else None,
-            reff2=proj.reff2.detach() if tight else None)
+            xy.detach(), depth.detach(), radius,
+            visible if bin_valid is None else bin_valid, width, height,
+            cfg.tile_w, cfg.tile_h,
+            cfg.max_dup if max_dup is None else max_dup,
+            ext=ext.detach() if tight else None,
+            reff2=reff2.detach() if tight else None)
 
     with span("hlod.blend"):
+        feats = features()
+        kw = dict(width=width, height=height, tile_w=cfg.tile_w,
+                  tile_h=cfg.tile_h, use_lod=use_lod, t_eps=cfg.t_eps,
+                  alpha_min=cfg.alpha_min)
         if cfg.backend == "pallas":
-            out = rasterize_tiles(
-                bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
-                ts_r, kids_r, width=width, height=height_b,
-                tile_w=cfg.tile_w, tile_h=cfg.tile_h, t_eps=cfg.t_eps,
-                alpha_min=cfg.alpha_min, want_seen=want_seen,
-                inference=cfg.inference)
+            out = rasterize_tiles(bins, feats, bg, want_seen=want_seen,
+                                  inference=cfg.inference, **kw)
         else:
-            out = rasterize_scan(
-                bins, xy, proj.conic, proj.opacity, color, invdepth_g, bg,
-                ts_r, kids_r, width=width, height=height_b,
-                tile_w=cfg.tile_w, tile_h=cfg.tile_h, k_max=k_max,
-                t_eps=cfg.t_eps, alpha_min=cfg.alpha_min)
+            out = rasterize_scan(bins, feats, bg, k_max=k_max, **kw)
     return RenderResult(
         image=out.image, invdepth=out.invdepth, final_t=out.final_t,
-        n_contrib=out.n_contrib, seen=out.seen, radii=proj.radius,
-        visible=proj.valid, truncated=out.truncated,
+        n_contrib=out.n_contrib, seen=out.seen, radii=radius,
+        visible=visible, truncated=out.truncated,
         n_dup=bins.num_candidates)
 
 
@@ -224,29 +245,6 @@ def _prepend_skybox(n_skybox, alive, means3d, scales, quats, opacities, shs,
                        kids_tail]))
 
 
-def _render_interp(n_skybox, alive, means3d, scales, quats, opacities, shs,
-                   interpolate, world_view, full_proj, campos, tan_fovx,
-                   tan_fovy, bg, *, sh_degree, width, height, cfg, k_max,
-                   antialiasing):
-    """Interpolate the cut (``interpolate()`` returns the interpolated
-    rows, valid, ts and kids), prepend the skybox and normalize the
-    quaternions, all inside the `hlod.interp` span; then blend with the LOD
-    alpha."""
-    with span("hlod.interp"):
-        interp, valid, ts, kids = interpolate()
-        (means_r, scales_r, quats_r, opac_r, shs_r, valid_r, ts_r,
-         kids_r) = _prepend_skybox(n_skybox, alive, means3d, scales, quats,
-                                   opacities, shs, interp, valid, ts, kids)
-        quats_r = quats_r / torch.linalg.norm(quats_r, dim=-1,
-                                              keepdim=True).clamp_min(1e-12)
-    return render_arrays(
-        means_r, scales_r, quats_r, opac_r, shs_r, valid_r,
-        world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-        ts_r, kids_r, None,
-        sh_degree=sh_degree, width=width, height=height, cfg=cfg,
-        k_max=k_max, antialiasing=antialiasing, use_lod=True)
-
-
 def compact_cut(mask, size, budget: int):
     """The cut compacted into ``budget`` rows: lexicographic (~mask, -size,
     index) as two stable sorts, the secondary key first, so an overflow
@@ -311,7 +309,8 @@ def render_lod(
         ts_sel = cut.ts[idx_c]
         kids_sel = cut.kids[idx_c]
 
-    def interpolate():
+    # interpolate the cut, prepend the skybox, normalize the quaternions
+    with span("hlod.interp"):
         if interp_table is not None:
             interp = cut_mod.interpolate_from_table(interp_table, idx_c,
                                                     ts_sel)
@@ -321,13 +320,18 @@ def render_lod(
                           opacities=opacities, shs=shs)
             interp = cut_mod.interpolate_with_parents(params, idx_c, parent,
                                                       ts_sel)
-        return interp, sel_valid, ts_sel, kids_sel
-
-    out = _render_interp(
-        n_skybox, alive, means3d, scales, quats, opacities, shs, interpolate,
+        (means_r, scales_r, quats_r, opac_r, shs_r, valid_r, ts_r,
+         kids_r) = _prepend_skybox(n_skybox, alive, means3d, scales, quats,
+                                   opacities, shs, interp, sel_valid, ts_sel,
+                                   kids_sel)
+        quats_r = quats_r / torch.linalg.norm(quats_r, dim=-1,
+                                              keepdim=True).clamp_min(1e-12)
+    out = render_arrays(
+        means_r, scales_r, quats_r, opac_r, shs_r, valid_r,
         world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
+        ts_r, kids_r, None,
         sh_degree=sh_degree, width=width, height=height, cfg=cfg,
-        k_max=k_max, antialiasing=antialiasing)
+        k_max=k_max, antialiasing=antialiasing, use_lod=True)
     return out, n_selected
 
 
@@ -351,27 +355,32 @@ def render_lod_masked(
     """Budget-free LOD render for dense cuts: every node is interpolated by
     one lerp over the InterpTable and the cut mask becomes the renderer's
     valid mask, with no compaction sort and no per-frame feature gather.
-    Returns (RenderResult, n_selected)."""
+    The lerp, the skybox prepend, the projection, SH and B1's feature rows
+    are one `lod_preprocess` pass (on the card one kernel launch, which
+    reads only the drawn rows of the table); binning and the blend are
+    render_arrays'. Returns (RenderResult, n_selected)."""
     cfg = dataclasses.replace(cfg, inference=True)
     cut = _compute_cut(precomputed_cut, boxes, nodes, means3d, scales, alive,
                        campos, world_view, target_size, pcache, use_frustum)
     mask = cut.render_mask
 
-    def interpolate():
+    with span("hlod.interp"):
         table = interp_table
         if table is None:
             table = cut_mod.build_interp_table(
                 dict(means3d=means3d, scales=scales, quats=quats,
                      opacities=opacities, shs=shs), nodes)
-        return (cut_mod.interpolate_all_masked(table, cut.ts, mask), mask,
-                torch.where(mask, cut.ts, torch.ones_like(cut.ts)),
-                torch.clamp_min(cut.kids, 1))
-
-    out = _render_interp(
-        n_skybox, alive, means3d, scales, quats, opacities, shs, interpolate,
-        world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-        sh_degree=sh_degree, width=width, height=height, cfg=cfg,
-        k_max=k_max, antialiasing=antialiasing)
+    with span("hlod.project"):
+        rows = lod_preprocess(
+            table, mask, cut.ts, cut.kids, alive, world_view, full_proj,
+            campos, tan_fovx, tan_fovy, width=width, height=height,
+            sh_degree=sh_degree, n_skybox=n_skybox, dilation=cfg.dilation,
+            near=cfg.near, big_limit=cfg.big_limit,
+            antialiasing=antialiasing)
+    out = _bin_and_blend(rows.feats[:, :2], rows.depth, rows.radius,
+                         rows.valid, rows.ext, rows.reff2, lambda: rows.feats,
+                         bg, width=width, height=height, cfg=cfg, k_max=k_max,
+                         use_lod=True)
     return out, torch.sum(mask)
 
 
@@ -518,16 +527,27 @@ def render_lod_auto(
         md *= 2
 
 
-def _to_host_async(fb):
+class _Feedback(tuple):
+    """A frame's feedback on its way to the host: the pair (host tensor,
+    event), as the stream's readers unpack it, with ``fused``, whether the
+    frame launched the lod_preprocess kernel."""
+
+    def __new__(cls, host, event, fused: bool):
+        self = super().__new__(cls, (host, event))
+        self.fused = fused
+        return self
+
+
+def _to_host_async(fb, fused: bool) -> _Feedback:
     """Start fb's copy to the host: on the card into a pinned tensor, with
-    an event recorded after the copy. Returns (host tensor, event)."""
+    an event recorded after the copy."""
     if not fb.is_cuda:
-        return fb, None
+        return _Feedback(fb, None, fused)
     host = torch.empty(fb.shape, dtype=fb.dtype, pin_memory=True)
     host.copy_(fb, non_blocking=True)
     event = torch.cuda.Event()
     event.record()
-    return host, event
+    return _Feedback(host, event, fused)
 
 
 def render_lod_stream(
@@ -566,11 +586,11 @@ def render_lod_stream(
     which counts its cut once (a sync) to seed the bucket. It holds
     "budget", "md" (the capacity high-water per bucket, "MASKED" for the
     masked path), "shrink" (frames the cut has wanted a smaller bucket),
-    "n_truncated_frames" and the pending feedback. As it reads a frame's
-    feedback it adds to `counters` the nodes drawn (n_selected, at most
-    the budget) and the rows interpolated (the tree's on the masked path,
-    the budget on the budgeted one). Returns (RenderResult, n_selected
-    device scalar)."""
+    "n_truncated_frames" and the pending feedback. As it reads a frame's feedback it adds to `counters` the
+    nodes drawn (n_selected, at most the budget) and the rows
+    interpolated: the budget on the budgeted path; on the masked path
+    n_selected where the frame launched the lod_preprocess kernel, which
+    lerps the drawn rows alone, else the tree's. Returns (RenderResult, n_selected device scalar)."""
     with span("hlod.lod_stream"):
         cap = means3d.shape[0]
 
@@ -601,25 +621,31 @@ def render_lod_stream(
             # an undershooting first capacity: the n_dup feedback grows it in
             # <= 2 frames, while an overshoot would stay (md only grows)
             md = state["md"].get(budget, max(md_floor, cap // 2))
+            launches = lod_preprocess_ops.lod_preprocess.launches
             out, n_sel, fb = _stream_frame_masked(
                 *frame_args, cfg=dataclasses.replace(
                     cfg, max_dup=min(md, cfg.max_dup)), **kw)
+            # a kernel launch lerps the drawn rows alone
+            fused = lod_preprocess_ops.lod_preprocess.launches > launches
         else:
+            fused = False
             md = state["md"].get(budget, max(md_floor, 2 * budget))
             out, n_sel, fb = _stream_frame_budget(
                 *frame_args, cfg=dataclasses.replace(
                     cfg, max_dup=min(md, cfg.max_dup)), budget=budget, **kw)
-        host, event = _to_host_async(fb)
+        feedback = _to_host_async(fb, fused)
 
         # the previous frame's feedback: its work ran while this frame was
         # being dispatched
         prev = state.pop("pending", None)
         if prev is not None:
-            (p_host, p_event), p_budget, p_md = prev
+            p_feedback, p_budget, p_md = prev
+            p_host, p_event = p_feedback
             if p_event is not None:
                 p_event.synchronize()
             p_n, p_trunc, p_dup = p_host.tolist()
-            rows = cap if p_budget == "MASKED" else p_budget
+            rows = (p_n if p_feedback.fused else
+                    cap if p_budget == "MASKED" else p_budget)
             counters["lod.nodes_drawn"] += min(p_n, rows)
             counters["lod.rows_interpolated"] += rows
             # the capacity hugs the observed entry demand (n_dup: exact when
@@ -644,5 +670,5 @@ def render_lod_stream(
                     state["shrink"] = 0
             else:
                 state["shrink"] = 0
-        state["pending"] = ((host, event), budget, md)
+        state["pending"] = (feedback, budget, md)
         return out, n_sel

@@ -16,7 +16,8 @@ program shows them; there is no switch.
 `counters` adds up, from process start, quantities the program already
 holds on the host: render_lod_stream adds each frame's feedback as it
 reads it, `lod.nodes_drawn` (the cut's nodes drawn) and
-`lod.rows_interpolated` (the rows the frame's interpolation lerped).
+`lod.rows_interpolated` (the rows the frame's interpolation lerped: the
+drawn rows alone where the lod_preprocess kernel ran it).
 """
 
 from __future__ import annotations

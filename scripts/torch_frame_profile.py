@@ -3,7 +3,7 @@
 step on one GPU.
 
     python3 scripts/torch_frame_profile.py [--frames 8]
-        [--path lod_stream|post|offload|pipeline]
+        [--path lod_stream|post|offload|pipeline] [--workload CELL]
 
 By default serves the flat 1080p bench request (render_arrays, 100k
 Gaussians, SH 3, 32x32 tiles, tight binning) and the tau-3 LOD request of
@@ -22,7 +22,9 @@ profiles DeviceResidentTrainer.step resident on view 0, then over the
 orbit with the next view prefetched (after a lap that fills the cache).
 With ``--path pipeline`` it profiles train.flat.train_step on the center
 chunk of chip_smoke.py's pipeline cell (9 shells, 2.25M points, 512x512)
-at that cell's max_dup 2^22 and at 2^21.
+at that cell's max_dup 2^22 and at 2^21. With ``--workload`` it runs a
+cell of BENCHMARK.json (its configuration and traffic, seed 1) through the
+set-up of its module in benchmark/drivers/ and profiles its units.
 Each path runs under torch.profiler
 and prints: the CUDA-event time per frame (or step), the host wall time,
 the device busy time (union of CUDA kernel intervals), the busy share of
@@ -359,6 +361,17 @@ def pipeline_profiles(dev, frames):
               f"{bool(box[2].truncated)}", flush=True)
 
 
+def cell_profiles(dev, frames, workload):
+    """A benchmark cell's units after its Session's set-up."""
+    import importlib
+    from benchmark.harness import core
+    _, cfg, traffic = core.cell_parts(core.load_bench(), workload)
+    mod = importlib.import_module(f"benchmark.drivers.{traffic['driver']}")
+    sess = mod.Session(cfg, traffic, 1, dev,
+                       lambda msg: print(msg, flush=True))
+    profile(workload, sess.unit, frames)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
@@ -368,6 +381,7 @@ def main():
                     help="the flat and LOD requests and the train step, "
                     "the full-size LOD stream, the post step, the "
                     "out-of-core step, or a pipeline chunk's train step")
+    ap.add_argument("--workload", help="a cell of BENCHMARK.json instead")
     args = ap.parse_args()
 
     import torch
@@ -389,6 +403,9 @@ def main():
                          text=True, check=True).stdout.strip()
     print(smi, f"torch {torch.__version__}", flush=True)
     dev = torch.device("cuda")
+    if args.workload:
+        cell_profiles(dev, args.frames, args.workload)
+        return 0
     if args.path == "lod_stream":
         lod_stream_profiles(dev, args.frames)
         return 0

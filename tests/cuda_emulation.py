@@ -1,17 +1,18 @@
 """Run a CUDA kernel's source on the CPU: the translation that the emulated
-kernel tests (tests/test_torch_b1_emulated.py, test_torch_b2_emulated.py)
-share, and the small scenes they feed it.
+kernel tests (tests/test_torch_b1_emulated.py, test_torch_b2_emulated.py,
+test_torch_lod_preprocess_emulated.py) share, and the small scenes the
+blend tests feed it.
 
 A CUDA kernel has no CPU mode, so `translate` turns a `.cu` source into C++
 that g++ builds on top of EMUL_H: one std::thread per CUDA thread,
 std::barrier for __syncthreads (and its _count / _or votes) and for the warp
-collectives (shuffles, votes, ballots, max), a synchronous copy for cp.async,
-`static` for __shared__ (blocks run one after another), and the launch as a
-loop over blocks. That runs the kernel's own control flow without a GPU. The
-arithmetic is the host's, so results agree with the plain versions to
-rounding, as on the card. A test runs each emulated launch in a subprocess
-with a time limit, so that a barrier that never completes fails the test
-instead of hanging it.
+collectives (__syncwarp, shuffles, votes, ballots, max), a synchronous copy
+for cp.async (16 bytes .cg, 8 bytes .ca), `static` for __shared__ (blocks
+run one after another), and the launch as a loop over blocks. That runs the
+kernel's own control flow without a GPU. The arithmetic is the host's, so
+results agree with the plain versions to rounding, as on the card. A test
+runs each emulated launch in a subprocess with a time limit, so that a
+barrier that never completes fails the test instead of hanging it.
 """
 
 import re
@@ -45,6 +46,7 @@ EMUL_H = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct Idx { int x = 0; };
 inline thread_local Idx threadIdx, blockIdx, blockDim;
@@ -110,6 +112,9 @@ void launch(K kernel, int grid, int nthr, size_t smem, cudaStream_t,
 }
 }  // namespace emu
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu::warp_bar->arrive_and_wait();
+}
 inline int __syncthreads_count(int p) {
   emu::block_i[threadIdx.x] = p != 0;
   emu::block_bar->arrive_and_wait();
@@ -155,6 +160,8 @@ def translate(src: str) -> str:
         (r"__shared__ ", "static ", False),
         (r'asm volatile\("cp\.async\.cg.*?\);', "std::memcpy(dst, src, 16);",
          False),
+        (r'asm volatile\("cp\.async\.ca.*?, 8;.*?\);',
+         "std::memcpy(dst, src, 8);", False),
         (r'asm volatile\("cp\.async\.commit_group.*?\);', "", False),
         (r'asm volatile\("cp\.async\.wait_group.*?\);', "", False),
         (r"(\w+)<<<(.*?)>>>\(", r"emu::launch(\1, \2, ", True),

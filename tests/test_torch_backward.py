@@ -101,8 +101,10 @@ def test_plain_backward_matches_pallas_interpret(case):
     (xy, con, op, col, inv, bg), (ts, kids) = torch_args(s)
     leaves = [t.requires_grad_(True) for t in (xy, con, op, col, inv)]
     before = rasterize_cuda.blend_backward.launches
-    out = rasterize_tiles(torch_bins(s, tw, th), *leaves, bg, ts, kids,
-                          width=W, height=H, tile_w=tw, tile_h=th)
+    out = rasterize_tiles(torch_bins(s, tw, th),
+                          blend_features(*leaves, ts, kids), bg, width=W,
+                          height=H, tile_w=tw, tile_h=th,
+                          use_lod=ts is not None)
     _loss(out, torch.as_tensor(tgt)).backward()
     assert rasterize_cuda.blend_backward.launches == before   # no kernel
     final_t = out.final_t.detach()

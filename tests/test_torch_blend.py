@@ -20,7 +20,8 @@ from hlod_gaussians_tpu.utils.camera import make_camera
 from hlod_gaussians_torch.ops import rasterize_cuda
 from hlod_gaussians_torch.ops.binning import bin_gaussians
 from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
-from hlod_gaussians_torch.ops.rasterize_xla import rasterize_scan
+from hlod_gaussians_torch.ops.rasterize_xla import (blend_features,
+                                                    rasterize_scan)
 
 W, H = 64, 48
 MAX_DUP = 4096
@@ -116,9 +117,10 @@ def test_plain_blend_matches_jax_scan(case):
     ref = jscan(jb, jxy, jcon, jop, jcol, jinv, jbg, jts, jkids, width=W,
                 height=H, tile_w=tw, tile_h=th, k_max=1024)
     (xy, con, op, col, inv, bg), (ts, kids) = torch_args(s)
-    got = rasterize_scan(torch_bins(s, tw, th), xy, con, op, col, inv, bg,
-                         ts, kids, width=W, height=H, tile_w=tw, tile_h=th,
-                         k_max=1024)
+    got = rasterize_scan(torch_bins(s, tw, th),
+                         blend_features(xy, con, op, col, inv, ts, kids), bg,
+                         width=W, height=H, tile_w=tw, tile_h=th, k_max=1024,
+                         use_lod=ts is not None)
     assert_same(got, ref)
     assert not bool(got.truncated)
     # saturated pixel: T stopped within one entry of t_eps
@@ -137,8 +139,8 @@ def test_scan_truncation_flag():
     (xy, con, op, col, inv, bg), _ = torch_args(s)
     bins = torch_bins(s, 16, 16)
     k_max = int(bins.tile_counts.max()) - 1
-    out = rasterize_scan(bins, xy, con, op, col, inv, bg, width=W, height=H,
-                         tile_w=16, tile_h=16, k_max=k_max)
+    out = rasterize_scan(bins, blend_features(xy, con, op, col, inv), bg,
+                         width=W, height=H, tile_w=16, tile_h=16, k_max=k_max)
     assert bool(out.truncated) == (int(bins.tile_counts.max()) >
                                    -(-k_max // 32) * 32)
 
@@ -158,9 +160,10 @@ def test_kernel_path_on_cpu_matches_pallas_interpret(case):
         want_seen=True, interpret=True)
     (xy, con, op, col, inv, bg), (ts, kids) = torch_args(s)
     launches = rasterize_cuda.blend_forward.launches
-    got = rasterize_tiles(torch_bins(s, tw, th), xy, con, op, col, inv, bg,
-                          ts, kids, width=W, height=H, tile_w=tw, tile_h=th,
-                          want_seen=True)
+    got = rasterize_tiles(torch_bins(s, tw, th),
+                          blend_features(xy, con, op, col, inv, ts, kids), bg,
+                          width=W, height=H, tile_w=tw, tile_h=th,
+                          use_lod=ts is not None, want_seen=True)
     assert rasterize_cuda.blend_forward.launches == launches   # no kernel
     assert_same(got, ref)
     assert got.seen.any()
@@ -174,15 +177,19 @@ def test_kernel_path_is_differentiable_and_inference_raises():
     (xy, con, op, col, inv, bg), _ = torch_args(s)
     bins = torch_bins(s, 16, 16)
     op.requires_grad_(True)
-    out = rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W, height=H,
-                          tile_w=16, tile_h=16)
+
+    def feats():
+        return blend_features(xy, con, op, col, inv)
+
+    out = rasterize_tiles(bins, feats(), bg, width=W, height=H, tile_w=16,
+                          tile_h=16)
     out.image.sum().backward()
     assert torch.isfinite(op.grad).all() and bool((op.grad != 0).any())
-    out = rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W, height=H,
-                          tile_w=16, tile_h=16, inference=True)
+    out = rasterize_tiles(bins, feats(), bg, width=W, height=H, tile_w=16,
+                          tile_h=16, inference=True)
     with pytest.raises(RuntimeError, match="inference"):
         out.image.sum().backward()
     with torch.no_grad():
-        out = rasterize_tiles(bins, xy, con, op, col, inv, bg, width=W,
-                              height=H, tile_w=16, tile_h=16, inference=True)
+        out = rasterize_tiles(bins, feats(), bg, width=W, height=H,
+                              tile_w=16, tile_h=16, inference=True)
     assert torch.isfinite(out.image).all()

@@ -7,8 +7,9 @@ with and without prefetch) on the card against the CPU, a tiny
 run_pipeline on the card against the same run on the CPU, the train and
 post steps and an MCMC round repeated bitwise in PyTorch's default mode,
 GMSD at 1080p against the CPU under the default cuDNN TF32 setting, the
-kNN scale init of the pipeline's ground truth against the CPU, and
-bench_torch.py's full-size step. Every
+kNN scale init of the pipeline's ground truth against the CPU,
+bench_torch.py's full-size step, and the masked LOD path's lod_preprocess
+kernel against its plain version (alone and in a tau-0 stream). Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -25,6 +26,8 @@ import torch
 from hlod_gaussians_torch import render
 from hlod_gaussians_torch.config import OptimizationConfig, RasterizerConfig
 from hlod_gaussians_torch.ops import gaussian_math, rasterize_cuda
+from hlod_gaussians_torch.ops.lod_preprocess import (lod_preprocess,
+                                                     lod_preprocess_plain)
 from hlod_gaussians_torch.ops.binning import bin_gaussians
 from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
                                                     blend_features,
@@ -33,6 +36,7 @@ from hlod_gaussians_torch.utils.camera import make_camera
 
 W, H = 96, 64
 ATOL = 2e-5
+FRAME_ATOL = 1e-4    # chip_smoke.py's, for whole frames
 GRAD_ATOL = 3e-4     # per-entry gradients, scaled by the largest magnitude
 
 CASES = {
@@ -291,6 +295,7 @@ def test_cuda_stream_frames_match_cpu(crossover, cuda_device):
             cam = make_camera(np.eye(3), np.array([0.05 * i, 0.0, 0.0]),
                               0.9, 0.7, W, H, device=dev)
             launches = rasterize_cuda.blend_forward.launches
+            fused = lod_preprocess.launches
             with torch.no_grad():
                 out, n_sel = render.render_lod_stream(
                     t["pos"], t["scale"], t["quat"], t["opacity"].clamp(0, 1),
@@ -302,6 +307,10 @@ def test_cuda_stream_frames_match_cpu(crossover, cuda_device):
                     masked_crossover=crossover)
             assert rasterize_cuda.blend_forward.launches == launches + (
                 dev.type == "cuda")
+            # the masked path's frame is one lod_preprocess launch on the
+            # card; render_lod (the budgeted path) launches none
+            assert lod_preprocess.launches == fused + (
+                dev.type == "cuda" and st["pending"][1] == "MASKED")
             state = {k: v for k, v in st.items() if k != "pending"}
             seq.append((out.image.cpu(), int(n_sel), bool(out.truncated),
                         dict(state, path=st["pending"][1:])))
@@ -309,6 +318,140 @@ def test_cuda_stream_frames_match_cpu(crossover, cuda_device):
     for (gi, gn, gt, gs), (ci, cn, ct, cs) in zip(outs["cuda"], outs["cpu"]):
         assert (gn, gt, gs) == (cn, ct, cs)
         torch.testing.assert_close(gi, ci, atol=1e-4, rtol=0)
+
+
+def _lod_scene(dev, n=2048, seed=4):
+    """A built tree of n leaves at SH 3 on `dev` (the table's parameters
+    activated as the serving cells have them) and its InterpTable."""
+    from hlod_gaussians_torch.hierarchy import build, cut
+    h = build.build_hierarchy(*_leaves(n, seed), device=torch.device("cpu"))
+    t = {k: torch.as_tensor(getattr(h, k), device=dev)
+         for k in ("pos", "scale", "quat", "opacity", "sh")}
+    t["opacity"] = t["opacity"].clamp(0, 1)
+    nodes = torch.as_tensor(h.nodes, device=dev)
+    alive = torch.ones(h.nodes.shape[0], dtype=torch.bool, device=dev)
+    itab = cut.build_interp_table(
+        dict(means3d=t["pos"], scales=t["scale"], quats=t["quat"],
+             opacities=t["opacity"], shs=t["sh"]), nodes)
+    return t, nodes, alive, itab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sh_degree, n_skybox, aa",
+                         [(3, 0, False), (1, 5, True), (0, 0, True)],
+                         ids=["sh3", "sh1-sky5-aa", "sh0-aa"])
+def test_cuda_lod_preprocess_matches_plain(sh_degree, n_skybox, aa,
+                                           cuda_device):
+    """Kernel lod_preprocess against lod_preprocess_plain, both on the card,
+    at a tau-0 cut with some nodes behind the camera: valid and radius
+    equal, the valid rows' feature rows, depth, ext and reff2 to rounding
+    (the card's logf and the SH sum's order), the other rows sanitised and
+    finite; two launches give the same bits."""
+    from hlod_gaussians_torch.hierarchy import cut
+    t, nodes, alive, itab = _lod_scene(cuda_device)
+    alive[2] = False
+    cam = make_camera(np.eye(3), np.array([0.0, 0.0, -3.5]), 0.9, 0.7, W, H,
+                      device=cuda_device)
+    c = cut.expand_to_size_dynamic(
+        nodes, t["pos"], torch.max(t["scale"], dim=1).values, alive,
+        cam.campos, cam.world_view[:3, 2], 1e-9, use_frustum=False)
+    args = (itab, c.render_mask, c.ts, c.kids, alive, cam.world_view,
+            cam.full_proj, cam.campos, cam.tan_fovx, cam.tan_fovy)
+    kw = dict(width=W, height=H, sh_degree=sh_degree, n_skybox=n_skybox,
+              antialiasing=aa)
+    launches = lod_preprocess.launches
+    got = lod_preprocess(*args, **kw)
+    again = lod_preprocess(*args, **kw)
+    torch.cuda.synchronize()
+    assert lod_preprocess.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = lod_preprocess_plain(*args, **kw)
+    valid = ref.valid
+    drawn = torch.cat([alive[:n_skybox], c.render_mask])
+    assert 0 < int(valid.sum()) < int(drawn.sum()) < drawn.numel()
+    assert torch.equal(got.valid, valid)
+    assert torch.equal(got.radius, ref.radius)
+    for k in ("feats", "depth", "ext", "reff2"):
+        torch.testing.assert_close(getattr(got, k)[valid],
+                                   getattr(ref, k)[valid], rtol=2e-5,
+                                   atol=2e-5)
+    for k in ("depth", "ext", "reff2"):
+        assert torch.equal(getattr(got, k)[~valid], getattr(ref, k)[~valid])
+    sanitised = [0, 1, 2, 3, 4, 5, 9, 10, 11]    # all but the colour
+    assert torch.equal(got.feats[~valid][:, sanitised],
+                       ref.feats[~valid][:, sanitised])
+    assert bool(torch.isfinite(got.feats).all())
+
+
+@pytest.mark.cuda
+def test_cuda_stream_tau0_kernel_matches_plain_chain(cuda_device,
+                                                     monkeypatch):
+    """Four render_lod_stream frames at tau 0 on the masked path on the
+    card, through the lod_preprocess kernel and through its plain version
+    (the chain as separate PyTorch kernels): images within chip_smoke.py's
+    FRAME_ATOL, the same n_dup, one kernel launch a frame, and the
+    counters: the drawn rows as the rows interpolated through the kernel,
+    the tree's through the plain chain.
+    render_lod_auto's masked frame launches it once as well."""
+    from hlod_gaussians_torch.utils.metrics import counters
+    t, nodes, alive, itab = _lod_scene(cuda_device)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=1 << 16)
+    cams = [make_camera(np.eye(3), np.array([0.05 * i, 0.0, 0.0]), 0.9,
+                        0.7, W, H, device=cuda_device) for i in range(4)]
+
+    def frames():
+        st, out = {}, []
+        for cam in cams:
+            with torch.no_grad():
+                o, n_sel = render.render_lod_stream(
+                    t["pos"], t["scale"], t["quat"], t["opacity"], t["sh"],
+                    nodes, alive, cam.world_view, cam.full_proj, cam.campos,
+                    cam.tan_fovx, cam.tan_fovy,
+                    torch.zeros(3, device=cuda_device), 1e-9, st,
+                    interp_table=itab, sh_degree=3, width=W, height=H,
+                    cfg=cfg, use_frustum=False, min_budget=16,
+                    md_floor=1 << 15)
+            assert st["pending"][1] == "MASKED"
+            out.append((o.image, int(o.n_dup), int(n_sel),
+                        bool(o.truncated)))
+        return out
+
+    def counted(run):
+        before = dict(counters)
+        out = run()
+        return out, {k: counters[k] - before.get(k, 0)
+                     for k in ("lod.nodes_drawn", "lod.rows_interpolated")}
+
+    launches = lod_preprocess.launches
+    fused, added = counted(frames)
+    assert lod_preprocess.launches == launches + len(cams)
+    n_sel = [n for _, _, n, _ in fused]
+    # the feedback of the frame before the last is read; the last waits
+    assert added == {"lod.nodes_drawn": sum(n_sel[:-1]),
+                     "lod.rows_interpolated": sum(n_sel[:-1])}
+    # render_lod_auto takes the masked path at this cut: one launch too
+    cam = cams[-1]
+    with torch.no_grad():
+        auto, n_auto = render.render_lod_auto(
+            t["pos"], t["scale"], t["quat"], t["opacity"], t["sh"], nodes,
+            alive, cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+            cam.tan_fovy, torch.zeros(3, device=cuda_device), 1e-9, None,
+            None, itab, sh_degree=3, width=W, height=H, cfg=cfg,
+            use_frustum=False, md_state={})
+    assert lod_preprocess.launches == launches + len(cams) + 1
+    assert int(n_auto) == fused[-1][2]
+    torch.testing.assert_close(auto.image, fused[-1][0], atol=FRAME_ATOL,
+                               rtol=0)
+    monkeypatch.setattr(render, "lod_preprocess", lod_preprocess_plain)
+    plain, added = counted(frames)
+    assert lod_preprocess.launches == launches + len(cams) + 1
+    assert added == {"lod.nodes_drawn": sum(n_sel[:-1]),
+                     "lod.rows_interpolated": (len(cams) - 1)
+                     * nodes.shape[0]}
+    for (gi, gd, gn, gt), (pi, pd, pn, pt) in zip(fused, plain):
+        assert (gd, gn, gt) == (pd, pn, pt) and not gt and gn > 0
+        torch.testing.assert_close(gi, pi, atol=FRAME_ATOL, rtol=0)
 
 
 def _post_scene(dev, n=200, cap=512, seed=6):
@@ -1008,7 +1151,9 @@ def test_cuda_steps_are_repeatable_in_default_mode(step, cuda_device):
                 cfg=RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
                                      max_dup=352 * 1024, tight_binning=True),
                 width=1920, height=1080, sh_degree=3)
+    fused = lod_preprocess.launches
     (a, aux_a), (b, aux_b) = run(), run()
+    assert lod_preprocess.launches == fused   # the steps project unfused
     assert not bool(aux_a.truncated)
     assert torch.equal(aux_a.loss, aux_b.loss)
     assert torch.equal(aux_a.image, aux_b.image)
