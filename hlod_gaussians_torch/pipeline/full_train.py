@@ -19,7 +19,7 @@ import dataclasses
 import os
 import time
 import traceback
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ from hlod_gaussians_torch.train import flat
 from hlod_gaussians_torch.train import post as post_mod
 from hlod_gaussians_torch.utils import checkpoint as ckpt
 from hlod_gaussians_torch.utils import scheduler
+from hlod_gaussians_torch.utils.metrics import counters, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +173,112 @@ def state_to_hierarchy(ts: flat.FlatTrainState) -> DHier:
         shs=h.sh.astype(np.float32), nodes=h.nodes)
 
 
+class PostStep(NamedTuple):
+    """One post_iteration's feedback. The first four stay on the device
+    until `read_post_step` brings them over in one copy: the step's loss,
+    whether its render truncated, the SPT cut's working-set rows and the
+    rows it rendered. ``mask`` ([C] bool, on the device) is the working
+    set the step trained. ``rows_projected`` (a host int) is the rows the
+    step's per-row work covered: the capacity, since activation, the
+    projection and Adam run over every row under a mask. ``round`` holds
+    the MCMC round's counts and its densify and rebuild seconds (host
+    clock) when one ran after the step, else None."""
+    loss: torch.Tensor
+    truncated: torch.Tensor
+    n_cut: torch.Tensor
+    n_rendered: torch.Tensor
+    mask: torch.Tensor
+    rows_projected: int
+    round: Optional[dict] = None
+
+
+def post_iteration(
+    ts: post_mod.PostTrainState,
+    forest: spt_mod.SPTForest,
+    it: int,
+    view,
+    bg: torch.Tensor,
+    scene_extent: float,
+    *,
+    opt: OptimizationConfig = OptimizationConfig(),
+    post: PostConfig = PostConfig(),
+    cfg: RasterizerConfig = RasterizerConfig(),
+    k_max: int = 1024,
+    sh_degree: int = 1,
+    densify_every: int = 5000,
+    generator: Optional[torch.Generator] = None,
+    centers: Optional[np.ndarray] = None,
+):
+    """One view of the train_post.py loop, inside the `hlod.post_step`
+    span: the SPT cut under the post budget (and the occlusion cull when
+    on) in `hlod.spt_cut`, a post step on `view` (a Camera with its
+    `image`), and, when step `it` is due (it > 0, it % densify_every ==
+    0), an MCMC round and the SPT rebuild. ``centers`` ([V, 3] camera
+    positions) feed the MIP respawn when post.use_mip_respawn is on; the
+    round's host draws come from ``generator``.
+
+    Returns (state, forest, PostStep); the forest is the rebuilt one after
+    a round. Without a round the step reads nothing back to the host."""
+    with span("hlod.post_step"):
+        with span("hlod.spt_cut"):
+            # over-budget fallback (train_post.py:324-430) on the device:
+            # no device->host sync on the cut size per view
+            cut = spt_mod.spt_cut_budgeted(
+                forest, ts.gaussians.capacity, view.campos, view.full_proj,
+                post.max_gaussian_budget,
+                grow=post.distance_multiplier_until_budget,
+                use_frustum=post.use_frustum_culling)
+            ws_mask = cut.gaussian_mask
+            if post.use_occlusion_culling:
+                # drop working-set rows invisible in a low-res pre-render
+                # (train_post.py:344-351 culls the coarse cut the same way)
+                ws_mask = reorder.occlusion_cull(ts.gaussians, ws_mask,
+                                                 *_cam_arrays(view))
+        ts, aux = post_mod.post_train_step(
+            ts, ws_mask, *_cam_arrays(view), view.image, bg, scene_extent,
+            opt=opt, post=post, cfg=cfg, width=view.width,
+            height=view.height, k_max=k_max, sh_degree=sh_degree)
+        rows = ts.gaussians.capacity
+        mcmc_round = None
+        if it > 0 and it % densify_every == 0:
+            extra_dead = None
+            if post.use_mip_respawn:
+                # relocate SPT entries no training camera can ever select
+                # (train_post.py:752-761)
+                extra_dead = spt_mod.mip_respawn_mask(
+                    forest, ts.gaussians.capacity,
+                    torch.as_tensor(centers.astype(np.float32),
+                                    device=ts.gaussians.xyz.device))
+            t0 = time.perf_counter()
+            ts, stats = post_mod.densify_round(ts, generator, post=post,
+                                               extra_dead=extra_dead)
+            stats = {k: int(s) for k, s in stats.items()}
+            t1 = time.perf_counter()
+            forest = post_mod.rebuild_spt(ts.gaussians, post=post)
+            mcmc_round = dict(stats, densify_s=t1 - t0,
+                              rebuild_s=time.perf_counter() - t1)
+        fb = PostStep(loss=aux.loss, truncated=aux.truncated,
+                      n_cut=cut.n_selected, n_rendered=aux.n_rendered,
+                      mask=ws_mask, rows_projected=rows, round=mcmc_round)
+    return ts, forest, fb
+
+
+def read_post_step(fb: PostStep) -> dict:
+    """A post step's feedback on the host, in one device-to-host copy:
+    {loss, n_rendered, n_cut, truncated}, as a training log reads it. Adds
+    the step's working-set rows to `metrics.counters["post.ws_rows"]` and
+    the rows its per-row work covered to `"post.rows_projected"`: the
+    counters add up the steps that are read, and no other (post_optimize
+    reads every `log_every`-th)."""
+    loss, truncated, n_cut, n_rendered = torch.stack([
+        fb.loss.double(), fb.truncated.double(), fb.n_cut.double(),
+        fb.n_rendered.double()]).tolist()
+    counters["post.ws_rows"] += int(n_cut)
+    counters["post.rows_projected"] += fb.rows_projected
+    return dict(loss=loss, n_rendered=int(n_rendered), n_cut=int(n_cut),
+                truncated=bool(truncated))
+
+
 def post_optimize(
     d: DHier,
     views: Sequence,
@@ -188,16 +295,17 @@ def post_optimize(
     log_every: int = 50,
     device=torch.device("cuda"),
 ) -> post_mod.PostTrainState:
-    """The train_post.py loop: per view an SPT cut, optionally the occlusion
-    cull, a post step, and every densify interval an MCMC round followed by
-    an SPT rebuild. `views` are Cameras with `image` on `device`.
+    """The train_post.py loop: `post_iteration` for each view of the
+    schedule (an SPT cut, optionally the occlusion cull, a post step, and
+    every densify interval an MCMC round followed by an SPT rebuild).
+    `views` are Cameras with `image` on `device`.
 
     ``logger`` (MetricsLogger-like: ``log(**kv)``) receives each round's
     counts with its densify and rebuild seconds (host clock; the round ends
     in a sync), and every ``log_every``-th step's loss, rendered and cut
-    rows and whether its render truncated (a sync; after the step's round
-    where one ran). The MCMC host draws come from a generator seeded with
-    pcfg.seed."""
+    rows and whether its render truncated (`read_post_step`: one copy;
+    after the step's round where one ran). The MCMC host draws come from a
+    generator seeded with pcfg.seed."""
     state = post_mod.create_from_dhier(
         d, capacity, skybox_num=skybox_num, scene_radius=scene_extent,
         n_exposures=_exposure_bucket(len(views)), device=device)
@@ -207,7 +315,6 @@ def post_optimize(
     centers = np.stack([v.campos.cpu().numpy() for v in views])
     order = scheduler.view_schedule(centers, len(views), n_iters,
                                     seed=pcfg.seed + 1, walk=pcfg.mh_walk)
-    w, h = views[0].width, views[0].height
     gen = torch.Generator(device=device).manual_seed(pcfg.seed)
     bg = torch.zeros(3, device=device)
     densify_every = (pcfg.post_densify_interval
@@ -218,48 +325,15 @@ def post_optimize(
     sh_degree = min(d.sh_degree, post.max_sh_degree)
 
     for it in range(n_iters):
-        v = views[int(order[it])]
-        # over-budget fallback (train_post.py:324-430) on the device: no
-        # device->host sync on the cut size per view
-        cut = spt_mod.spt_cut_budgeted(
-            forest, capacity, v.campos, v.full_proj,
-            post.max_gaussian_budget,
-            grow=post.distance_multiplier_until_budget,
-            use_frustum=post.use_frustum_culling)
-        ws_mask = cut.gaussian_mask
-        if post.use_occlusion_culling:
-            # drop working-set rows invisible in a low-res pre-render
-            # (train_post.py:344-351 culls the coarse cut the same way)
-            ws_mask = reorder.occlusion_cull(ts.gaussians, ws_mask,
-                                             *_cam_arrays(v))
-        ts, aux = post_mod.post_train_step(
-            ts, ws_mask, *_cam_arrays(v), v.image, bg, scene_extent,
-            opt=opt, post=post, cfg=cfg, width=w, height=h,
-            k_max=pcfg.k_max, sh_degree=sh_degree)
-        if it > 0 and it % densify_every == 0:
-            extra_dead = None
-            if post.use_mip_respawn:
-                # relocate SPT entries no training camera can ever select
-                # (train_post.py:752-761)
-                extra_dead = spt_mod.mip_respawn_mask(
-                    forest, capacity,
-                    torch.as_tensor(centers.astype(np.float32),
-                                    device=device))
-            t0 = time.perf_counter()
-            ts, stats = post_mod.densify_round(ts, gen, post=post,
-                                               extra_dead=extra_dead)
-            stats = {k: int(s) for k, s in stats.items()}
-            t1 = time.perf_counter()
-            forest = post_mod.rebuild_spt(ts.gaussians, post=post)
-            if logger:
-                logger.log(stage="post_densify", it=it, **stats,
-                           densify_s=t1 - t0,
-                           rebuild_s=time.perf_counter() - t1)
+        ts, forest, fb = post_iteration(
+            ts, forest, it, views[int(order[it])], bg, scene_extent,
+            opt=opt, post=post, cfg=cfg, k_max=pcfg.k_max,
+            sh_degree=sh_degree, densify_every=densify_every,
+            generator=gen, centers=centers)
+        if logger and fb.round is not None:
+            logger.log(stage="post_densify", it=it, **fb.round)
         if logger and it % log_every == 0:
-            logger.log(stage="post", it=it, loss=float(aux.loss),
-                       n_rendered=int(aux.n_rendered),
-                       n_cut=int(cut.n_selected),
-                       truncated=bool(aux.truncated))
+            logger.log(stage="post", it=it, **read_post_step(fb))
     return ts
 
 

@@ -19,6 +19,10 @@ Densification rounds (train_post.py:707-788): `densify_round` grows toward
 max_cap (add_new_gs), then relocates dead leaves (relocate_gs); the caller
 then rebuilds the SPT forest (`rebuild_spt`, a host sweep).
 
+Spans (utils/metrics.span): post_train_step opens `hlod.loss`,
+`hlod.backward` and `hlod.adam` as train/flat.py's train_step does;
+densify_round opens `hlod.densify` and rebuild_spt `hlod.rebuild_spt`.
+
 Also here: `create_from_dhier` (a loaded .dhier as a capacity-padded state)
 and its inverse `state_to_dhier`. The JAX package's exposure-table swap
 around the MCMC calls, which only spares XLA recompiles, has no
@@ -42,6 +46,7 @@ from hlod_gaussians_torch.models import gaussians as gm
 from hlod_gaussians_torch.ops import gaussian_math, quaternion
 from hlod_gaussians_torch.ops import sh as sh_ops
 from hlod_gaussians_torch.ops import ssim as ssim_ops
+from hlod_gaussians_torch.utils.metrics import span
 
 
 def create_from_dhier(
@@ -178,29 +183,31 @@ def post_loss(
     antialiasing: bool,
 ):
     """The forward half of post_train_step: render `params` over the working
-    set (and the skybox) and score the view -> (loss, (render result,
-    image, l1, ssim))."""
+    set (and the skybox) and score the view in `hlod.loss` -> (loss,
+    (render result, image, l1, ssim))."""
     act = gm.activate(g.replace_params(params), cut_mask | g.skybox_mask)
     out = render_mod.render_arrays(
         act.means3d, act.scales, act.quats, act.opacities, act.shs,
         act.valid, world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
         sh_degree=sh_degree, width=width, height=height, cfg=cfg,
         k_max=k_max, antialiasing=antialiasing)
-    image = out.image
-    l1 = torch.abs(image - gt_image).mean()
-    ssim_v = ssim_ops.ssim(image, gt_image)
-    loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (1.0 - ssim_v)
-    # MCMC regularizers over the working set (train_post.py:565-576)
-    ws = cut_mask & g.alive
-    n_ws = torch.clamp_min(torch.sum(ws), 1)
-    if post.lambda_opacity > 0:
-        op = torch.sigmoid(params["opacity_logit"][:, 0])
-        loss = loss + post.lambda_opacity * torch.sum(
-            torch.where(ws, torch.abs(op), 0.0)) / n_ws
-    if post.lambda_scaling > 0:
-        sc = torch.exp(params["log_scale"])
-        loss = loss + post.lambda_scaling * torch.sum(
-            torch.where(ws[:, None], torch.abs(sc), 0.0)) / n_ws
+    with span("hlod.loss"):
+        image = out.image
+        l1 = torch.abs(image - gt_image).mean()
+        ssim_v = ssim_ops.ssim(image, gt_image)
+        loss = ((1.0 - opt.lambda_dssim) * l1
+                + opt.lambda_dssim * (1.0 - ssim_v))
+        # MCMC regularizers over the working set (train_post.py:565-576)
+        ws = cut_mask & g.alive
+        n_ws = torch.clamp_min(torch.sum(ws), 1)
+        if post.lambda_opacity > 0:
+            op = torch.sigmoid(params["opacity_logit"][:, 0])
+            loss = loss + post.lambda_opacity * torch.sum(
+                torch.where(ws, torch.abs(op), 0.0)) / n_ws
+        if post.lambda_scaling > 0:
+            sc = torch.exp(params["log_scale"])
+            loss = loss + post.lambda_scaling * torch.sum(
+                torch.where(ws[:, None], torch.abs(sc), 0.0)) / n_ws
     return loss, (out, image, l1, ssim_v)
 
 
@@ -221,7 +228,9 @@ def post_train_step(
     eps: Optional[torch.Tensor] = None,
 ) -> Tuple[PostTrainState, PostAux]:
     """One post-optimization step over the masked working set
-    (train_post.py:495-620 + 790-818). ``eps`` ([C,3]) is the exploration
+    (train_post.py:495-620 + 790-818): render_arrays' spans, then
+    `hlod.loss`, `hlod.backward` and `hlod.adam` (the skybox gradient
+    mask, masked Adam and the noise). ``eps`` ([C,3]) is the exploration
     noise's normal draw; without it `mcmc_noise` draws one when
     post.mcmc_noise_lr > 0."""
     g = ts.gaussians
@@ -234,47 +243,53 @@ def post_train_step(
         height=height, k_max=k_max, sh_degree=sh_degree,
         antialiasing=antialiasing)
     names = list(params)
-    got = torch.autograd.grad(loss, [params[k] for k in names],
-                              allow_unused=True)
+    with span("hlod.backward"):
+        got = torch.autograd.grad(loss, [params[k] for k in names],
+                                  allow_unused=True)
     # the exposure table is not in the loss: a zero gradient, as under
     # jax.grad
     grads = {k: torch.zeros_like(params[k]) if gk is None else gk
              for k, gk in zip(names, got)}
     params = {k: p.detach() for k, p in params.items()}
 
-    # skybox rows train colour and opacity but not geometry
-    # (train_post.py:790-800)
-    sky = g.skybox_mask
-    for k in ("xyz", "quat", "log_scale"):
-        gk = grads[k]
-        grads[k] = torch.where(sky.reshape((cap,) + (1,) * (gk.ndim - 1)),
-                               torch.zeros_like(gk), gk)
+    with span("hlod.adam"):
+        # skybox rows train colour and opacity but not geometry
+        # (train_post.py:790-800)
+        sky = g.skybox_mask
+        for k in ("xyz", "quat", "log_scale"):
+            gk = grads[k]
+            grads[k] = torch.where(
+                sky.reshape((cap,) + (1,) * (gk.ndim - 1)),
+                torch.zeros_like(gk), gk)
 
-    lrs = optim.param_lrs(opt, ts.step, scene_extent,
-                          lr_multiplier=post.lr_multiplier)
-    visible = out.visible
-    new_params, adam = optim.sparse_adam_update(params, grads, ts.adam, lrs,
-                                                visible=visible)
+        lrs = optim.param_lrs(opt, ts.step, scene_extent,
+                              lr_multiplier=post.lr_multiplier)
+        visible = out.visible
+        new_params, adam = optim.sparse_adam_update(params, grads, ts.adam,
+                                                    lrs, visible=visible)
 
-    if post.mcmc_noise_lr > 0:
-        # covariance-shaped exploration noise on low-opacity working-set
-        # rows (3DGS-as-MCMC; reference train_post.py:869-885):
-        #   noise = Sigma @ randn * sigmoid(-100*(opacity - 0.995)) * lr
-        if eps is None:
-            eps = mcmc_noise(ts.step, new_params["xyz"].shape, g.xyz.device)
-        op = torch.sigmoid(new_params["opacity_logit"][:, 0])
-        gate = torch.sigmoid(-100.0 * (op - 0.995))
-        cov = gaussian_math.unpack_cov3d(gaussian_math.compute_cov3d(
-            torch.exp(new_params["log_scale"]),
-            quaternion.normalize(new_params["quat"])))
-        shaped = torch.einsum("nij,nj->ni", cov, eps)
-        mask = (visible & ~sky)[:, None]
-        new_params = dict(new_params, xyz=new_params["xyz"] + torch.where(
-            mask, shaped * gate[:, None] * post.mcmc_noise_lr * lrs["xyz"],
-            0.0))
+        if post.mcmc_noise_lr > 0:
+            # covariance-shaped exploration noise on low-opacity
+            # working-set rows (3DGS-as-MCMC; reference
+            # train_post.py:869-885):
+            #   noise = Sigma @ randn * sigmoid(-100*(opacity - 0.995)) * lr
+            if eps is None:
+                eps = mcmc_noise(ts.step, new_params["xyz"].shape,
+                                 g.xyz.device)
+            op = torch.sigmoid(new_params["opacity_logit"][:, 0])
+            gate = torch.sigmoid(-100.0 * (op - 0.995))
+            cov = gaussian_math.unpack_cov3d(gaussian_math.compute_cov3d(
+                torch.exp(new_params["log_scale"]),
+                quaternion.normalize(new_params["quat"])))
+            shaped = torch.einsum("nij,nj->ni", cov, eps)
+            mask = (visible & ~sky)[:, None]
+            new_params = dict(new_params, xyz=new_params["xyz"] + torch.where(
+                mask,
+                shaped * gate[:, None] * post.mcmc_noise_lr * lrs["xyz"],
+                0.0))
 
-    new_ts = PostTrainState(gaussians=g.replace_params(new_params), adam=adam,
-                            step=ts.step + 1)
+        new_ts = PostTrainState(gaussians=g.replace_params(new_params),
+                                adam=adam, step=ts.step + 1)
     aux = PostAux(loss=loss.detach(), l1=l1.detach(), ssim=ssim_v.detach(),
                   n_rendered=torch.sum(visible), image=image.detach(),
                   truncated=out.truncated)
@@ -296,45 +311,48 @@ def densify_round(
     growth), then relocate dead leaves. ``extra_dead`` feeds the MIP respawn
     of never-visible SPT entries (spt.mip_respawn_mask). The host draws come
     from `generator`, or from ``sampled`` = (add_new_gs draws, relocate_gs
-    draws). One host sync reads the live count."""
-    g = ts.gaussians
-    if not post.mcmc_densification:
-        # the reference runs NO densification without the MCMC flag (every
-        # grow/relocate site is inside `if MCMC_Densification`)
-        return ts, dict(n_added_pairs=0, n_relocated=0,
-                        size=torch.sum(g.alive))
-    size = int(torch.sum(g.alive))
-    # the target in float32, as the JAX package rounds it
-    target = min(post.max_cap, int(np.float32(size)
-                                   * np.float32(1.0 + post.grow_fraction)))
-    n_new = max(target - size, 0)
-    s_add, s_rel = sampled if sampled is not None else (None, None)
+    draws). One host sync reads the live count. Inside `hlod.densify`."""
+    with span("hlod.densify"):
+        g = ts.gaussians
+        if not post.mcmc_densification:
+            # the reference runs NO densification without the MCMC flag
+            # (every grow/relocate site is inside `if MCMC_Densification`)
+            return ts, dict(n_added_pairs=0, n_relocated=0,
+                            size=torch.sum(g.alive))
+        size = int(torch.sum(g.alive))
+        # the target in float32, as the JAX package rounds it
+        target = min(post.max_cap, int(np.float32(size)
+                                       * np.float32(1.0 + post.grow_fraction)))
+        n_new = max(target - size, 0)
+        s_add, s_rel = sampled if sampled is not None else (None, None)
 
-    g2, adam2, n_pairs = mcmc.add_new_gs(g, ts.adam, n_new, budget=budget,
-                                         sampled=s_add, generator=generator)
-    g3, adam3, n_reloc = mcmc.relocate_gs(
-        g2, adam2, post.dead_opacity, budget=budget, max_depth=max_depth,
-        extra_dead=extra_dead, sampled=s_rel, generator=generator)
-    stats = dict(n_added_pairs=n_pairs, n_relocated=n_reloc,
-                 size=torch.sum(g3.alive))
-    return PostTrainState(gaussians=g3, adam=adam3, step=ts.step), stats
+        g2, adam2, n_pairs = mcmc.add_new_gs(
+            g, ts.adam, n_new, budget=budget, sampled=s_add,
+            generator=generator)
+        g3, adam3, n_reloc = mcmc.relocate_gs(
+            g2, adam2, post.dead_opacity, budget=budget, max_depth=max_depth,
+            extra_dead=extra_dead, sampled=s_rel, generator=generator)
+        stats = dict(n_added_pairs=n_pairs, n_relocated=n_reloc,
+                     size=torch.sum(g3.alive))
+        return PostTrainState(gaussians=g3, adam=adam3, step=ts.step), stats
 
 
 def rebuild_spt(state: gm.GaussianState, *, post: PostConfig = PostConfig(),
                 max_depth: int = 64) -> spt_mod.SPTForest:
     """(Re)build the SPT forest from the current state: the state comes to
     the host for spt.build_spt's numpy sweep, the forest goes back to the
-    state's device."""
-    alive = state.alive.cpu().numpy()
-    nodes = state.nodes.cpu().numpy()
-    root_candidates = np.where(alive & (nodes[:, gm.NODE_PARENT] == -1)
-                               & (nodes[:, gm.NODE_DEPTH] >= 0))[0]
-    root = int(root_candidates[0])
-    return spt_mod.build_spt(
-        nodes, state.xyz.cpu().numpy(),
-        np.exp(state.log_scale.cpu().numpy()), alive, root,
-        root_volume=post.spt_root_volume,
-        target_granularity=post.spt_target_granularity,
-        min_spt_size=post.min_spt_size, max_depth=max_depth,
-        use_bounding_spheres=post.use_bounding_spheres,
-        device=state.xyz.device)
+    state's device. Inside `hlod.rebuild_spt`."""
+    with span("hlod.rebuild_spt"):
+        alive = state.alive.cpu().numpy()
+        nodes = state.nodes.cpu().numpy()
+        root_candidates = np.where(alive & (nodes[:, gm.NODE_PARENT] == -1)
+                                   & (nodes[:, gm.NODE_DEPTH] >= 0))[0]
+        root = int(root_candidates[0])
+        return spt_mod.build_spt(
+            nodes, state.xyz.cpu().numpy(),
+            np.exp(state.log_scale.cpu().numpy()), alive, root,
+            root_volume=post.spt_root_volume,
+            target_granularity=post.spt_target_granularity,
+            min_spt_size=post.min_spt_size, max_depth=max_depth,
+            use_bounding_spheres=post.use_bounding_spheres,
+            device=state.xyz.device)

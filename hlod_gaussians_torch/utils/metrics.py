@@ -9,15 +9,25 @@ port opens `hlod.*` spans inside its entry points: `hlod.train_step`
 (train/flat.py) around `hlod.project`, `hlod.bin` and `hlod.blend`
 (render.render_arrays), `hlod.loss`, `hlod.backward` and `hlod.adam`;
 `hlod.lod_stream` (render.render_lod_stream) around `hlod.cut`,
-`hlod.compact`, `hlod.interp` and render_arrays' three. A span records
-only while a profiler runs, so any `torch.profiler.profile` over the
-program shows them; there is no switch.
+`hlod.compact`, `hlod.interp` and render_arrays' three;
+`hlod.post_step` (pipeline/full_train.py's post_iteration) around
+`hlod.spt_cut` (the SPT cut and the occlusion cull), render_arrays'
+three, `hlod.loss`, `hlod.backward` and `hlod.adam` (train/post.py's
+post_train_step) and, in a step with an MCMC round, `hlod.densify`
+(densify_round) and `hlod.rebuild_spt` (rebuild_spt, which the set-up of
+a post run opens too). A span records only while a profiler runs, so any
+`torch.profiler.profile` over the program shows them; there is no
+switch.
 
 `counters` adds up, from process start, quantities the program already
 holds on the host: render_lod_stream adds each frame's feedback as it
 reads it, `lod.nodes_drawn` (the cut's nodes drawn) and
 `lod.rows_interpolated` (the rows the frame's interpolation lerped: the
-drawn rows alone where the lod_preprocess kernel ran it).
+drawn rows alone where the lod_preprocess kernel ran it);
+full_train.read_post_step adds each post step's feedback it reads,
+`post.ws_rows` (the SPT cut's working-set rows) and
+`post.rows_projected` (the rows the step's per-row work covered: the
+state's capacity).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """The port's tracing (`hlod_gaussians_torch/utils/metrics.py`): the
-`hlod.*` spans that train_step and render_lod_stream open are host events
-on torch.profiler's clock that the profiler does not mirror onto the
-device, they change no output, and render_lod_stream adds to `counters`
-exactly the feedback it reads."""
+`hlod.*` spans that train_step, render_lod_stream and post_iteration open
+are host events on torch.profiler's clock that the profiler does not
+mirror onto the device, they change no output, and render_lod_stream and
+read_post_step add to `counters` exactly the feedback they read."""
 
 import contextlib
 import dataclasses
@@ -15,10 +15,14 @@ from torch.profiler import ProfilerActivity, profile
 from hlod_gaussians_torch import render
 from hlod_gaussians_torch.config import RasterizerConfig
 from hlod_gaussians_torch.hierarchy import build, cut
+from hlod_gaussians_torch.hierarchy import spt
 from hlod_gaussians_torch.models import gaussians as gm
-from hlod_gaussians_torch.train import flat
+from hlod_gaussians_torch.pipeline import full_train
+from hlod_gaussians_torch.train import flat, post
 from hlod_gaussians_torch.utils import metrics
 from hlod_gaussians_torch.utils.camera import make_camera
+from tests.test_torch_post_iteration import (CAP, EXTENT, POST, post_tree,
+                                             post_views)
 
 CPU = torch.device("cpu")
 W = H = 64
@@ -27,6 +31,11 @@ TRAIN_SPANS = {"hlod.train_step", "hlod.project", "hlod.bin", "hlod.blend",
                "hlod.loss", "hlod.backward", "hlod.adam"}
 STREAM_SPANS = {"hlod.lod_stream", "hlod.cut", "hlod.interp", "hlod.project",
                 "hlod.bin", "hlod.blend"}
+POST_SPANS = {"hlod.post_step", "hlod.spt_cut", "hlod.project", "hlod.bin",
+              "hlod.blend", "hlod.loss", "hlod.backward", "hlod.adam"}
+ROUND_SPANS = {"hlod.densify", "hlod.rebuild_spt"}
+HOST_READS = ("item", "tolist", "__bool__", "__int__", "__float__", "cpu",
+              "numpy")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -178,3 +187,89 @@ def test_stream_counts_the_feedback_it_reads(tree, crossover):
              for k in ("lod.nodes_drawn", "lod.rows_interpolated")}
     assert added == {"lod.nodes_drawn": sum(drawn),
                      "lod.rows_interpolated": sum(rows)}
+
+
+def _post_start():
+    """A post state over post_tree's 129 nodes, its forest and one view."""
+    ts = post.init_post_train(post.create_from_dhier(
+        post_tree(), CAP, scene_radius=EXTENT, n_exposures=8, device=CPU))
+    return ts, post.rebuild_spt(ts.gaussians, post=POST), post_views(1)[0]
+
+
+def _post_step(ts, forest, view, it=0):
+    return full_train.post_iteration(
+        ts, forest, it, view, torch.zeros(3), EXTENT, post=POST, cfg=CFG,
+        densify_every=4, generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("it", [3, 4], ids=["step", "round"])
+def test_post_step_opens_its_spans(it):
+    """post_iteration opens `hlod.post_step` around the cut's
+    `hlod.spt_cut`, render_arrays' three spans and post_train_step's
+    `hlod.loss`, `hlod.backward` and `hlod.adam`; a step that is due a
+    round adds `hlod.densify` and `hlod.rebuild_spt`. Each is a host event
+    without a device annotation, inside the entry span."""
+    ts, forest, view = _post_start()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, fb = _post_step(ts, forest, view, it)
+    assert (fb.round is not None) == (it == 4)
+    spans = _spans(prof)
+    for e in spans:
+        assert e.device_type == torch.autograd.DeviceType.CPU, e.name
+        assert not e.is_user_annotation and e.scope == 0, e.name
+    want = POST_SPANS | (ROUND_SPANS if it == 4 else set())
+    assert {e.name for e in spans} == want
+    entry, = [e for e in spans if e.name == "hlod.post_step"]
+    for e in spans:
+        assert (entry.time_range.start <= e.time_range.start
+                and e.time_range.end <= entry.time_range.end), e.name
+
+
+def test_post_step_adds_no_host_read(monkeypatch):
+    """The entry point reads nothing back to the host beyond what the cut
+    and the step it calls read, and adds no counter: the counters move
+    only when read_post_step reads the step."""
+    ts, forest, view = _post_start()
+    reads = []
+    for name in HOST_READS:
+        orig = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, _orig=orig, _name=name, **kw):
+            reads.append(_name)
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+    before = dict(metrics.counters)
+    _post_step(ts, forest, view)
+    entry = list(reads)
+    assert dict(metrics.counters) == before
+    del reads[:]
+    cut = spt.spt_cut_budgeted(forest, CAP, view.campos, view.full_proj,
+                               POST.max_gaussian_budget,
+                               grow=POST.distance_multiplier_until_budget,
+                               use_frustum=POST.use_frustum_culling)
+    post.post_train_step(ts, cut.gaussian_mask, view.world_view,
+                         view.full_proj, view.campos, view.tan_fovx,
+                         view.tan_fovy, view.image, torch.zeros(3), EXTENT,
+                         post=POST, cfg=CFG, width=W, height=H, k_max=1024,
+                         sh_degree=1)
+    assert entry == reads
+
+
+def test_post_spans_change_no_output(monkeypatch):
+    """A post step with a round gives the same state bit for bit with the
+    spans, under a profiler, and with every span replaced by a no-op."""
+    def run():
+        ts, forest, view = _post_start()
+        ts, forest, fb = _post_step(ts, forest, view, 4)
+        return [ts.gaussians.xyz, ts.gaussians.f_dc, ts.gaussians.nodes,
+                ts.adam.m["xyz"], fb.loss, forest.entry_gid]
+
+    plain = run()
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = run()
+    for mod in (render, full_train, post):
+        monkeypatch.setattr(mod, "span",
+                            lambda name: contextlib.nullcontext())
+    bare = run()
+    for a, b, c in zip(plain, traced, bare):
+        assert torch.equal(a, b) and torch.equal(a, c)
