@@ -78,6 +78,13 @@ Phases (any failure raises and exits non-zero):
      chain's, the byte bound. Phases 5 and 7-10 count its launches by path
      (one a masked stream or auto frame, none on train_step and the
      budgeted render_lod).
+  11c. kernel sparse_adam at the train and post cells' states (2,959,677
+     rows, all in the mask; 4,194,304 rows, 42 % in it; 59 floats a row
+     and the exposure table) against the plain chain on the card, p, m
+     and v bit for bit; the kernel's time over 20 back-to-back launches,
+     the chain's and its kernel count (the profiler), the byte bound (28
+     bytes a float of a row in the mask, 24 outside it). Phases 5 and 12 time both at their own steps; the kernel table counts
+     its launches by path.
   12. hierarchy post-optimization at the JAX package's post bench point
      (scripts/offload_bench3.py): build_hierarchy on the card over 2^21
      leaves (4,194,303 nodes, SH 1), the SPT forest, a 40-view 1080p orbit
@@ -250,6 +257,16 @@ B1_BATCH = 32        # entries per shared-memory batch of kernel B1
 # basis about 55, the sums 2 x 48)
 LODPRE_LEAVES, LODPRE_DRAWN = 1 << 22, 4_179_253
 OPS_LODPRE = 177 + 80 + 200 + 55 + 96
+# kernel sparse_adam (csrc/sparse_adam.cu) at the training cells' states
+# (benchmark/configs/): rows and the share of them in the step's mask, the
+# train cell's every row and the post cell's working set (ws_useful.post);
+# 59 floats a row at SH 3. A masked float reads p, g, m, v and writes p, m,
+# v (28 bytes), an unmasked one skips g (24); a row adds its mask byte.
+# f32 operations an updated float: the moments (6), the bias corrections,
+# lr, sqrt, eps, the quotient and the difference (7)
+ADAM_CELLS = {"train": (2_959_677, 1.0), "post": (4_194_304, 0.42)}
+ADAM_ROW_FLOATS = 59
+OPS_ADAM = 13
 GRAD_SCALED_ATOL = 3e-4
 TRAIN_STEPS = 8
 # the JAX package's LOD bench tree (bench.py:145-253): 2^19 leaves, a
@@ -352,6 +369,8 @@ def ptxas_lines(build_log):
         if m:
             args = re.findall(r"L[bi](\d+)E", m.group(2) + "E")
             kernel_name = f"{m.group(1)}<{', '.join(args)}>"
+        elif "sparse_adam_kernel" in line:
+            kernel_name = "sparse_adam_kernel"
         elif "registers" in line or "spill" in line:
             yield kernel_name, line.replace("ptxas info    :", "").strip()
 
@@ -676,7 +695,7 @@ def train_phase(ts, cam_args, gt, bg, cfg, width, height, extent=8.0):
         return loss, params, xy_off, out
 
     fwd_ms = cuda_time_ms(forward, 5)
-    bwd_times, adam_times = [], []
+    bwd_times, adam_times, plain_times = [], [], []
     lrs = optim.param_lrs(opt, ts.step, extent)
     for _ in range(5):
         loss, params, xy_off, out = forward()
@@ -688,14 +707,26 @@ def train_phase(ts, cam_args, gt, bg, cfg, width, height, extent=8.0):
             grads.update(zip(params, got))
         bwd_times.append(cuda_time_ms(backward, 1, warmup=0))
         detached = {k: p.detach() for k, p in params.items()}
-        adam_times.append(cuda_time_ms(lambda: optim.sparse_adam_update(
-            detached, grads, ts.adam, lrs, visible=out.visible), 1,
-            warmup=0))
+        kernel_ms, plain_ms = adam_times_ms(detached, grads, ts.adam, lrs,
+                                            out.visible)
+        adam_times.append(kernel_ms)
+        plain_times.append(plain_ms)
     return dict(launches=launches, losses=[round(x, 6) for x in losses],
                 step_ms=step_ms,
                 host_ms=host_ms, n_visible=int(aux.n_visible), fwd_ms=fwd_ms,
                 bwd_ms=statistics.median(bwd_times),
-                adam_ms=statistics.median(adam_times))
+                adam_ms=statistics.median(adam_times),
+                adam_plain_ms=statistics.median(plain_times))
+
+
+def adam_times_ms(params, grads, state, lrs, visible):
+    """One step's Adam on the card, CUDA events: (kernel sparse_adam through
+    optim.sparse_adam_update, the plain chain optim.sparse_adam_plain)."""
+    from hlod_gaussians_torch import optim
+    return (cuda_time_ms(lambda: optim.sparse_adam_update(
+                params, grads, state, lrs, visible=visible), 1, warmup=0),
+            cuda_time_ms(lambda: optim.sparse_adam_plain(
+                params, grads, state, lrs, visible=visible), 1, warmup=0))
 
 
 def lod_bench_leaves(n=LOD_LEAVES):
@@ -1300,7 +1331,7 @@ def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
         return loss, params, out
 
     split["render + loss"] = cuda_time_ms(forward, 3)
-    bwd, adam = [], []
+    bwd, adam, adam_plain = [], [], []
     lrs = optim.param_lrs(OptimizationConfig(), ts.step, extent)
     for _ in range(3):
         loss, params, out = forward()
@@ -1314,11 +1345,13 @@ def post_phase(dev, width, height, smi, n_leaves=POST_LEAVES):
                          for k, v in zip(params, got))
         bwd.append(cuda_time_ms(backward, 1, warmup=0))
         detached = {k: p.detach() for k, p in params.items()}
-        adam.append(cuda_time_ms(lambda: optim.sparse_adam_update(
-            detached, grads, ts.adam, lrs, visible=out.visible), 1,
-            warmup=0))
+        kernel_ms, plain_ms = adam_times_ms(detached, grads, ts.adam, lrs,
+                                            out.visible)
+        adam.append(kernel_ms)
+        adam_plain.append(plain_ms)
     split["backward"] = statistics.median(bwd)
     split["Adam"] = statistics.median(adam)
+    split["Adam's plain chain"] = statistics.median(adam_plain)
     del loss, params, out, grads, detached
     log("  split of one step (camera 0, CUDA events): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f" [{smi}]")
@@ -2123,6 +2156,111 @@ def lod_preprocess_phase(dev, smi):
                 bound_by=bound_by, max_rel_err=err, valid_diff=valid_diff,
                 radius_diff=radius_diff,
                 launches=lp.lod_preprocess.launches - before)
+
+
+def sparse_adam_phase(dev, smi):
+    """Phase [11c]: kernel sparse_adam against the plain chain on the card
+    at the training cells' states, f_dc's and f_rest's gradients views of
+    one tensor as in a step: p, m and v bit for bit; the kernel's
+    time (CUDA events over 20 back-to-back launches), the chain's, the
+    device kernels each launches (the profiler) and the byte bound: 28
+    bytes a float of a row in the mask, 24 of one outside it (g is not
+    read there). The bound as if every row were in the mask is kept as a
+    note."""
+    import torch
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.config import OptimizationConfig
+    launches = optim.sparse_adam_cuda.launches
+    out = {}
+    for cell, (rows, share) in ADAM_CELLS.items():
+        log(f"[11c] kernel sparse_adam at the {cell} cell's state: {rows} "
+            f"rows, {share:.0%} in the mask")
+        g = torch.Generator(device=dev).manual_seed(rows)
+
+        def draw(shape, scale):
+            return torch.randn(shape, generator=g, device=dev) * scale
+
+        shapes = dict(xyz=(rows, 3), f_dc=(rows, 1, 3), f_rest=(rows, 15, 3),
+                      log_scale=(rows, 3), quat=(rows, 4),
+                      opacity_logit=(rows, 1), exposure=(1, 3, 4))
+        params = {k: draw(s, 1.0) for k, s in shapes.items()}
+        grads = {k: draw(s, 1e-3) for k, s in shapes.items()}
+        # as autograd hands them over: rows of one [C, 16, 3] tensor
+        sh = draw((rows, 16, 3), 1e-3)
+        grads["f_dc"], grads["f_rest"] = sh[:, :1], sh[:, 1:]
+        state = optim.AdamState(
+            m={k: draw(s, 1e-3) for k, s in shapes.items()},
+            v={k: draw(s, 1e-6).abs() for k, s in shapes.items()}, step=99)
+        visible = torch.rand((rows,), generator=g, device=dev) < share
+        lrs = optim.param_lrs(OptimizationConfig(), 99, 5.0)
+        args = (params, grads, state, lrs, visible)
+        got = optim.sparse_adam_update(*args)
+        ref = optim.sparse_adam_plain(*args)
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32)
+        err = 0.0
+        for k in shapes:
+            for part, a, b in (("p", got[0], ref[0]), ("m", got[1].m,
+                                ref[1].m), ("v", got[1].v, ref[1].v)):
+                err = max(err, float((a[k] - b[k]).abs().max()))
+                if not torch.equal(bits(a[k]), bits(b[k])):
+                    raise AssertionError(f"sparse_adam {part} {k} differs "
+                                         f"from the plain chain")
+        del got, ref
+        reps = 20
+
+        def kernel_runs():
+            for _ in range(reps):
+                optim.sparse_adam_update(*args)
+
+        ms = cuda_time_ms(kernel_runs, 3, warmup=1) / reps
+        plain_ms = cuda_time_ms(lambda: optim.sparse_adam_plain(*args), 3)
+        counts = {}
+        for name, fn in (("kernel", optim.sparse_adam_update),
+                         ("plain", optim.sparse_adam_plain)):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn(*args)
+                torch.cuda.synchronize()
+            counts[name] = sum(
+                1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        n_in = int(visible.sum())
+        f = ADAM_ROW_FLOATS
+        n_bytes = n_in * (28 * f + 1) + (rows - n_in) * (24 * f + 1)
+        bound_ms, bound_by, parts = bound(n_bytes, OPS_ADAM * f * n_in)
+        every_row_ms = bound(rows * (28 * f + 1), OPS_ADAM * f * n_in)[0]
+        log(f"  sparse_adam {ms:.4f} ms ({ms / bound_ms:.2f}x its bound), "
+            f"plain chain {plain_ms:.3f} ms, device kernels a call "
+            f"{counts['kernel']} / {counts['plain']}, max abs err {err}; "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {parts}; {n_bytes} "
+            f"bytes; {every_row_ms:.4f} ms were every row in the mask) "
+            f"[{smi}]")
+        out[cell] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, every_row_bound_ms=every_row_ms,
+                         max_abs_err=err, kernels=counts["kernel"],
+                         plain_kernels=counts["plain"])
+        del args, params, grads, state, visible
+        torch.cuda.empty_cache()
+    out["launches"] = optim.sparse_adam_cuda.launches - launches
+    return out
+
+
+def sparse_adam_entry(adr, launches_by_path):
+    """The kernel table's line for sparse_adam: the paths' launches and
+    [11c]'s own, its numbers at both training cells' states."""
+    return {"name": "sparse_adam", "route": "cuda",
+            "source": "hlod_gaussians_torch/csrc/sparse_adam.cu",
+            "replaces": None,
+            "launches": sum(launches_by_path.values()) + adr["launches"],
+            "launches_by_path": dict(launches_by_path,
+                                     kernel_check=adr["launches"]),
+            "max_abs_err": max(adr[c]["max_abs_err"] for c in ADAM_CELLS),
+            "ms": adr["train"]["ms"],
+            "plain_ms": adr["train"]["plain_ms"],
+            "bound_ms": adr["train"]["bound_ms"],
+            "bound_by": adr["train"]["bound_by"], "library_ms": None,
+            "post_state": adr["post"]}
 
 
 def lod_preprocess_entry(lpr, launches_by_path):
@@ -4317,7 +4455,7 @@ def main():
               "test runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from hlod_gaussians_torch import convert, render
+    from hlod_gaussians_torch import convert, optim, render
     from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.data.dhier import load_dhier
     from hlod_gaussians_torch.models import gaussians as gm
@@ -4650,7 +4788,10 @@ def main():
                 cam0.tan_fovy)
     kernel.launches = kernel_b2.launches = 0
     fused_before = lod_preprocess.launches
+    adam_launches = {}
+    adam_before = optim.sparse_adam_cuda.launches
     tr = train_phase(ts, cam_args, gt, bg, cfg, width, height)
+    adam_launches["train"] = optim.sparse_adam_cuda.launches - adam_before
     train_launches, train_b2 = tr["launches"]
     train_lp = lod_preprocess.launches - fused_before
     if train_lp:
@@ -4663,7 +4804,8 @@ def main():
         f"{statistics.median(tr['host_ms']):.3f} ms")
     log(f"  split: forward (render + loss) {tr['fwd_ms']:.3f} ms, backward "
         f"{tr['bwd_ms']:.3f} ms (B2 kernel {b2_ms:.3f} ms), Adam "
-        f"{tr['adam_ms']:.3f} ms [{smi}]")
+        f"{tr['adam_ms']:.3f} ms (sparse_adam; plain chain "
+        f"{tr['adam_plain_ms']:.3f} ms) [{smi}]")
 
     del ts, tr, pert
     torch.cuda.empty_cache()
@@ -4672,8 +4814,11 @@ def main():
     max_err = max(max_err, lodr["max_err"])
     torch.cuda.empty_cache()
     lpr = lod_preprocess_phase(dev, smi)
+    adr = sparse_adam_phase(dev, smi)
 
+    adam_before = optim.sparse_adam_cuda.launches
     postr = post_phase(dev, width, height, smi)
+    adam_launches["post"] = optim.sparse_adam_cuda.launches - adam_before
     max_err = max(max_err, postr["b1_err"])
     b2_err = max(b2_err, postr["b2_err"])
     torch.cuda.empty_cache()
@@ -4795,7 +4940,10 @@ def main():
         "offload_frame": offr["b2_frame"],
         "pipeline_frame": piper["b2_frame"],
     }, lod_preprocess_entry(lpr, dict(lodr["lod_preprocess"],
-                                      train=train_lp))]}))
+                                      train=train_lp)),
+        sparse_adam_entry(adr, dict(
+            adam_launches, other=optim.sparse_adam_cuda.launches
+            - adr["launches"] - sum(adam_launches.values())))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,11 @@ pixels.
 
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC` compiles each source of `SOURCES` (the blend
-kernels and `csrc/lod_preprocess.cu`, whose wrapper is
-`ops/lod_preprocess.py`) into a shared library with a plain C launcher
-under `hlod_gaussians_torch/_build/`, named by a hash of that source and
-its flags, and loads it with ctypes. `build()` starts one nvcc per missing
+kernels, `csrc/lod_preprocess.cu`, whose wrapper is `ops/lod_preprocess.py`,
+and `csrc/sparse_adam.cu`, whose wrapper is `optim.sparse_adam_cuda`) into
+a shared library with a plain C launcher under `hlod_gaussians_torch/
+_build/`, named by a hash of that source and its flags, and loads it with
+ctypes. `build()` starts one nvcc per missing
 library, all at once. Nothing is built or imported while this module is
 imported.
 
@@ -47,12 +48,15 @@ from hlod_gaussians_torch.ops.rasterize_xla import (N_FEATS,
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("blend_forward", "blend_backward", "lod_preprocess")}
+           for name in ("blend_forward", "blend_backward", "lod_preprocess",
+                        "sparse_adam")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# lod_preprocess follows its plain version's rounding op by op: no FMAs
-EXTRA_FLAGS = {"lod_preprocess": ("-fmad=false",)}
+# lod_preprocess and sparse_adam follow their plain versions' rounding op
+# by op: no FMAs
+EXTRA_FLAGS = {"lod_preprocess": ("-fmad=false",),
+               "sparse_adam": ("-fmad=false",)}
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each library's `<name>_launch` signature
 ARGTYPES = {
@@ -60,6 +64,7 @@ ARGTYPES = {
     "blend_backward": [_p] * 8 + [_i] * 6 + [_f, _i, _p, _p],
     "lod_preprocess": ([_p] * 10 + [_f, _f] + [_i] * 6 + [_f] * 4 + [_i]
                        + [_p] * 7),
+    "sparse_adam": [_i] + [_p] * 5 + [_f] * 7 + [_p],
 }
 
 

@@ -12,10 +12,16 @@ The step counters are host ints: PyTorch runs eagerly, so the learning-rate
 schedule and the bias corrections are host scalars and a step needs no
 device sync. They are computed in float32, as the JAX package computes
 them, so both packages take the same step.
+
+On CUDA tensors the step is one launch of the hand-written kernel
+sparse_adam (csrc/sparse_adam.cu, wrapper `sparse_adam_cuda`), which
+equals the plain chain on the card bit for bit; on CPU tensors it is that
+chain, `sparse_adam_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, NamedTuple, Optional
 
@@ -23,6 +29,8 @@ import numpy as np
 import torch
 
 from hlod_gaussians_torch.config import OptimizationConfig
+from hlod_gaussians_torch.ops import rasterize_cuda
+from hlod_gaussians_torch.utils.metrics import counters
 
 
 class AdamState(NamedTuple):
@@ -87,6 +95,14 @@ def param_lrs(cfg: OptimizationConfig, step, spatial_lr_scale: float,
     )
 
 
+def _bias_terms(step: int, b1: float, b2: float):
+    """(bc1, bc2, 1 - b1, 1 - b2) of a step in float32, as host floats."""
+    f32 = np.float32
+    return (float(f32(1) - f32(b1) ** f32(step)),
+            float(f32(1) - f32(b2) ** f32(step)),
+            float(f32(1 - b1)), float(f32(1 - b2)))
+
+
 def sparse_adam_update(
     params: Dict[str, torch.Tensor],
     grads: Dict[str, torch.Tensor],
@@ -95,30 +111,42 @@ def sparse_adam_update(
     visible: Optional[torch.Tensor] = None,   # [C] bool mask over Gaussian rows
     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15,
 ):
-    """One masked Adam step -> (new params, new AdamState).
+    """One masked Adam step -> (new params, new AdamState), out of place.
 
     ``visible`` masks rows of every per-Gaussian tensor (leading dim C);
     tensors with a different leading dim (exposure) are updated where their
-    gradient is nonzero."""
-    f32 = np.float32
-    step = state.step + 1
-    bc1 = float(f32(1) - f32(b1) ** f32(step))
-    bc2 = float(f32(1) - f32(b2) ** f32(step))
-    one_m_b1, one_m_b2 = float(f32(1 - b1)), float(f32(1 - b2))
+    gradient is nonzero. On CUDA tensors one launch of kernel sparse_adam
+    (`sparse_adam_cuda`); on CPU tensors the plain chain
+    (`sparse_adam_plain`)."""
+    if any(p.is_cuda for p in params.values()):
+        return sparse_adam_cuda(params, grads, state, lrs, visible, b1, b2,
+                                eps)
+    return sparse_adam_plain(params, grads, state, lrs, visible, b1, b2, eps)
 
+
+def _row_mask(k: str, p: torch.Tensor, g: torch.Tensor,
+              visible: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The rows of tensor ``k`` that take the step, or None for all:
+    ``visible`` on a tensor of C rows, the rows with a nonzero gradient on
+    the exposure table."""
+    if k == "exposure":
+        return torch.any((g != 0.0).reshape(g.shape[0], -1), dim=1)
+    if visible is not None and p.ndim >= 1 and p.shape[0] == visible.shape[0]:
+        return visible
+    return None
+
+
+def sparse_adam_plain(params, grads, state: AdamState, lrs, visible=None,
+                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15):
+    """Plain version of kernel sparse_adam: sparse_adam_update as separate
+    PyTorch operations, in the order the kernel follows."""
+    step = state.step + 1
+    bc1, bc2, one_m_b1, one_m_b2 = _bias_terms(step, b1, b2)
     new_p, new_m, new_v = {}, {}, {}
-    cap = None
     for k in params:
         p, g = params[k], grads[k]
         m0, v0 = state.m[k], state.v[k]
-        mask = None
-        if visible is not None and p.ndim >= 1 and k != "exposure":
-            if cap is None:
-                cap = visible.shape[0]
-            mask = visible if p.shape[0] == cap else None
-        if mask is None and k == "exposure":
-            # rows (images) with any nonzero grad
-            mask = torch.any((g != 0.0).reshape(g.shape[0], -1), dim=1)
+        mask = _row_mask(k, p, g, visible)
         m1 = b1 * m0 + one_m_b1 * g
         v1 = b2 * v0 + one_m_b2 * g * g
         p1 = p - lrs[k] * (m1 / bc1) / (torch.sqrt(v1 / bc2) + eps)
@@ -129,6 +157,112 @@ def sparse_adam_update(
             p1 = torch.where(msk, p1, p)
         new_p[k], new_m[k], new_v[k] = p1, m1, v1
     return new_p, AdamState(m=new_m, v=new_v, step=step)
+
+
+def _row_stride(t: torch.Tensor, width: int) -> Optional[int]:
+    """Floats from one row of ``t`` to the next where each of its rows is
+    contiguous (a packed tensor, or a view of whole rows of a wider one),
+    else None."""
+    if t.is_contiguous():
+        return width
+    if t.shape[0] > 1 and t.stride(0) >= width and t[0].is_contiguous():
+        return t.stride(0)
+    return None
+
+
+def sparse_adam_cuda(params, grads, state: AdamState, lrs, visible=None,
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15):
+    """Kernel sparse_adam (csrc/sparse_adam.cu): sparse_adam_plain's step,
+    bit for bit as the plain chain gives it on the card, for every tensor
+    in one launch on the current stream. Checks every input before it
+    launches: float32 and p's shape, and p, m and v with contiguous rows
+    (packed, or views of whole rows as the out-of-core trainer's; a
+    gradient may come in any layout), and at most eight tensors, each
+    under 2^32 floats (the kernel refuses more); counts its launches in
+    ``sparse_adam_cuda.launches`` and the rows it covers (the capacity) in
+    counters["adam.rows_fused"]."""
+    tensors = [visible] if visible is not None else []
+    for k, p in params.items():
+        for name, t in (("param", p), ("grad", grads[k]),
+                        ("m", state.m[k]), ("v", state.v[k])):
+            if t.dtype != torch.float32:
+                raise ValueError(f"{name} {k} must be torch.float32, got "
+                                 f"{t.dtype}")
+            if t.shape != p.shape:
+                raise ValueError(f"{name} {k} must have shape "
+                                 f"{tuple(p.shape)}, got {tuple(t.shape)}")
+            if name != "grad" and p.ndim and p.numel() and _row_stride(
+                    t, p.numel() // p.shape[0]) is None:
+                raise ValueError(f"{name} {k} must have contiguous rows")
+            tensors.append(t)
+    if visible is not None:
+        if visible.dtype != torch.bool or visible.ndim != 1 or \
+                not visible.is_contiguous():
+            raise ValueError("visible must be a contiguous 1-D torch.bool "
+                             f"tensor, got {visible.dtype} of shape "
+                             f"{tuple(visible.shape)}")
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("every tensor must be on one CUDA device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+
+    lib = rasterize_cuda._library("sparse_adam")
+    with torch.cuda.device(dev):
+        out = launch_sparse_adam(
+            lib, params, grads, state, lrs, visible, b1, b2, eps,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if any(p.numel() for p in params.values()):      # else no launch
+        sparse_adam_cuda.launches += 1
+        counters["adam.rows_fused"] += (
+            visible.shape[0] if visible is not None
+            else next(iter(params.values())).shape[0])
+    return out
+
+
+def launch_sparse_adam(lib, params, grads, state: AdamState, lrs, visible,
+                       b1: float, b2: float, eps: float, stream):
+    """The C call that sparse_adam_cuda makes into ``lib`` (the built
+    kernel, or its emulation on the CPU in the tests), with no checks:
+    allocates the outputs, the row masks and the segment table, launches
+    on ``stream`` and raises on a launch error."""
+    step = state.step + 1
+    bc1, bc2, one_m_b1, one_m_b2 = _bias_terms(step, b1, b2)
+    f32 = np.float32
+    new_p, new_m, new_v = {}, {}, {}
+    ptrs, numel, width, strides, lr = [], [], [], [], []
+    held = []       # masks and gradient copies, alive until the launch
+    for k, p in params.items():
+        g, m0, v0 = grads[k], state.m[k], state.v[k]
+        mask = _row_mask(k, p, g, visible)
+        w = 1 if p.ndim == 0 or p.numel() == 0 else p.numel() // p.shape[0]
+        if _row_stride(g, w) is None:        # autograd's choice of layout
+            g = g.contiguous()
+        held += [mask, g]
+        out = [torch.empty(p.shape, dtype=p.dtype, device=p.device)
+               for _ in range(3)]
+        new_p[k], new_m[k], new_v[k] = out
+        ptrs += [t.data_ptr() for t in (p, g, m0, v0, *out)]
+        ptrs.append(None if mask is None else mask.data_ptr())
+        numel.append(p.numel())
+        width.append(w)
+        strides += [_row_stride(t, w) for t in (p, g, m0, v0)]
+        lr.append(lrs[k])
+    n = len(numel)
+    # PyTorch divides by a host scalar as a product with its float32
+    # reciprocal, so the kernel takes 1 / bc1 and 1 / bc2
+    err = lib.sparse_adam_launch(
+        n, (ctypes.c_void_p * (8 * n))(*ptrs),
+        (ctypes.c_longlong * n)(*numel), (ctypes.c_int * n)(*width),
+        (ctypes.c_longlong * (4 * n))(*strides), (ctypes.c_float * n)(*lr),
+        b1, b2, one_m_b1, one_m_b2, float(f32(1) / f32(bc1)),
+        float(f32(1) / f32(bc2)), eps, stream)
+    if err != 0:
+        raise RuntimeError("sparse_adam kernel launch failed: "
+                           f"{lib.sparse_adam_error_string(err).decode()}")
+    return new_p, AdamState(m=new_m, v=new_v, step=step)
+
+
+sparse_adam_cuda.launches = 0
 
 
 def zero_rows(state: AdamState, mask: torch.Tensor, keys=None) -> AdamState:

@@ -27,7 +27,8 @@ drawn rows alone where the lod_preprocess kernel ran it);
 full_train.read_post_step adds each post step's feedback it reads,
 `post.ws_rows` (the SPT cut's working-set rows) and
 `post.rows_projected` (the rows the step's per-row work covered: the
-state's capacity).
+state's capacity); optim.sparse_adam_cuda adds, at each launch of kernel
+sparse_adam, `adam.rows_fused` (the rows it covered: the capacity).
 """
 
 from __future__ import annotations

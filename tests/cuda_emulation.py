@@ -1,7 +1,7 @@
 """Run a CUDA kernel's source on the CPU: the translation that the emulated
 kernel tests (tests/test_torch_b1_emulated.py, test_torch_b2_emulated.py,
-test_torch_lod_preprocess_emulated.py) share, and the small scenes the
-blend tests feed it.
+test_torch_lod_preprocess_emulated.py, test_torch_sparse_adam_emulated.py)
+share, and the small scenes the blend tests feed it.
 
 A CUDA kernel has no CPU mode, so `translate` turns a `.cu` source into C++
 that g++ builds on top of EMUL_H: one std::thread per CUDA thread,
@@ -48,6 +48,9 @@ EMUL_H = r"""
 #define __restrict__
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct Idx { int x = 0; };
 inline thread_local Idx threadIdx, blockIdx, blockDim;
 typedef int cudaError_t;
@@ -62,6 +65,7 @@ inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fdividef(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float x) { volatile float r = std::sqrt(x); return r; }
 inline float __logf(float x) { return std::log(x); }
 inline unsigned long long __cvta_generic_to_shared(const void*) { return 0; }
 using std::max;

@@ -8,8 +8,10 @@ run_pipeline on the card against the same run on the CPU, the train and
 post steps and an MCMC round repeated bitwise in PyTorch's default mode,
 GMSD at 1080p against the CPU under the default cuDNN TF32 setting, the
 kNN scale init of the pipeline's ground truth against the CPU,
-bench_torch.py's full-size step, and the masked LOD path's lod_preprocess
-kernel against its plain version (alone and in a tau-0 stream). Every
+bench_torch.py's full-size step, the masked LOD path's lod_preprocess
+kernel against its plain version (alone and in a tau-0 stream), and kernel
+sparse_adam against its plain chain bit for bit (alone and inside a train
+and a post step). Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -1218,3 +1220,136 @@ def test_cuda_bench_step_is_untruncated(cuda_device):
         launches[0] + 1, launches[1] + 1)
     assert np.isfinite(float(loss.detach()))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+# kernel sparse_adam: row widths by key (1, 3, 4, 9, 45 floats) and the
+# exposure table beside them
+ADAM_WIDTHS = dict(opacity_logit=(1,), xyz=(3,), quat=(4,), w9=(3, 3),
+                   f_dc=(1, 3), f_rest=(15, 3))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1001, (1 << 20) + 3])
+@pytest.mark.parametrize("step", [1, 7])
+@pytest.mark.parametrize("mask", ["absent", "partial", "empty"])
+def test_cuda_sparse_adam_matches_plain_chain(mask, step, rows,
+                                              cuda_device):
+    """Kernel sparse_adam against sparse_adam_plain, both on the card: p, m
+    and v of every key bit for bit. Row widths 1, 3, 4, 9 and 45, a tensor
+    at lr 0, one 4 bytes into its storage (the kernel's float-by-float
+    path), inputs whose rows lie apart (gradients as views of one tensor,
+    p, m and v as column views of a packed matrix), a gradient broadcast
+    from a row, row counts that are not a multiple of the 4
+    floats a thread takes, the exposure table with an image without
+    gradient; one launch, the capacity added to adam.rows_fused, the
+    inputs untouched."""
+    from hlod_gaussians_torch import optim
+    gen = torch.Generator(device=cuda_device).manual_seed(step * 31 + rows)
+    shapes = {k: (rows,) + w for k, w in ADAM_WIDTHS.items()}
+    shapes["exposure"] = (3, 3, 4)
+
+    def draw(s, scale=1.0):
+        return torch.randn(s, generator=gen, device=cuda_device) * scale
+
+    p = {k: draw(s) for k, s in shapes.items()}
+    store = torch.empty(p["quat"].numel() + 1, device=cuda_device)
+    p["quat"] = store[1:].view(shapes["quat"]).copy_(p["quat"])
+    g = {k: draw(s, 0.01) for k, s in shapes.items()}
+    g["exposure"][1] = 0.0
+    # f_dc's and f_rest's gradients as autograd hands them over, rows of one
+    # [C, 16, 3] tensor; xyz's broadcast from one row
+    sh = draw((rows, 16, 3), 0.01)
+    g["f_dc"], g["f_rest"] = sh[:, :1], sh[:, 1:]
+    g["xyz"] = draw((1, 3), 0.01).expand(rows, 3)
+    m = {k: draw(s, 0.01) for k, s in shapes.items()}
+    v = {k: draw(s, 1e-4).abs() for k, s in shapes.items()}
+    # w9's p, m and v as column views of one packed matrix, as the
+    # out-of-core trainer hands them over
+    packed = draw((rows, 32), 1.0)
+    packed[:, 9:18] = m["w9"].reshape(rows, 9)
+    packed[:, 18:27] = v["w9"].reshape(rows, 9)
+    p["w9"], m["w9"], v["w9"] = (packed[:, i:i + 9].reshape(rows, 3, 3)
+                                 for i in (0, 9, 18))
+    state = optim.AdamState(m=m, v=v, step=step - 1)
+    visible = dict(
+        absent=None, empty=torch.zeros(rows, dtype=torch.bool,
+                                       device=cuda_device),
+        partial=torch.rand(rows, generator=gen, device=cuda_device) < 0.6,
+    )[mask]
+    lrs = {k: 1e-3 * (i + 1) for i, k in enumerate(shapes)}
+    lrs["w9"] = 0.0
+    before = [{k: t.clone() for k, t in d.items()}
+              for d in (p, g, state.m, state.v)]
+    launches = optim.sparse_adam_cuda.launches
+    fused = optim.counters["adam.rows_fused"]
+    got_p, got_s = optim.sparse_adam_update(p, g, state, lrs, visible)
+    torch.cuda.synchronize()
+    assert optim.sparse_adam_cuda.launches == launches + 1
+    assert optim.counters["adam.rows_fused"] == fused + rows
+    ref_p, ref_s = optim.sparse_adam_plain(p, g, state, lrs, visible)
+    assert got_s.step == ref_s.step == step
+    for k in shapes:
+        for part, a, b in (("p", got_p, ref_p), ("m", got_s.m, ref_s.m),
+                           ("v", got_s.v, ref_s.v)):
+            assert torch.equal(_bits(a[k]), _bits(b[k])), (part, k)
+    for d, old in zip((p, g, state.m, state.v), before):
+        assert all(torch.equal(_bits(d[k]), _bits(old[k])) for k in d)
+    moved = torch.ones(rows, dtype=torch.bool, device=cuda_device) \
+        if visible is None else visible
+    assert torch.equal(_bits(got_p["xyz"][~moved]), _bits(p["xyz"][~moved]))
+    assert bool((got_s.m["xyz"][moved] != state.m["xyz"][moved]).any(
+        dim=1).all())
+    assert torch.equal(_bits(got_p["w9"]), _bits(p["w9"]))
+    assert torch.equal(_bits(got_p["exposure"][1]), _bits(p["exposure"][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["flat", "post"])
+def test_cuda_steps_with_sparse_adam_equal_the_plain_chain(step, cuda_device,
+                                                           monkeypatch):
+    """flat.train_step and post_train_step at a tiny size on the card: the
+    new state through kernel sparse_adam (one launch a step) equals, bit
+    for bit, the state with the plain chain called in its place."""
+    from hlod_gaussians_torch import optim
+    from hlod_gaussians_torch.train import flat, post
+    bg = torch.zeros(3, device=cuda_device)
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
+                           max_dup=1 << 14)
+    if step == "flat":
+        ts = flat.init_flat_train(_offload_scene(cuda_device)[0])
+        views = _dp_views(cuda_device, n=1)
+
+        def run():
+            return flat.train_step(
+                ts, *(v[0] for v in views[:5]), views[5][0], bg,
+                exposure_idx=0, scene_extent=5.0, cfg=cfg, width=48,
+                height=48, k_max=256, sh_degree=1)
+    else:
+        state, _, cam, cut, pcfg = _post_scene(cuda_device)
+        ts = post.init_post_train(dataclasses.replace(
+            state, f_dc=state.f_dc + 0.2))
+        gt = torch.as_tensor(np.random.default_rng(8).uniform(
+            0, 1, (3, H, W)).astype(np.float32), device=cuda_device)
+
+        def run():
+            return post.post_train_step(
+                ts, cut.gaussian_mask, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, gt, bg, 3.0,
+                post=pcfg, cfg=cfg, width=W, height=H)
+    launches = optim.sparse_adam_cuda.launches
+    fused, _ = run()
+    assert optim.sparse_adam_cuda.launches == launches + 1
+    monkeypatch.setattr(optim, "sparse_adam_update", optim.sparse_adam_plain)
+    plain, _ = run()
+    assert optim.sparse_adam_cuda.launches == launches + 1
+    assert fused.adam.step == plain.adam.step == ts.adam.step + 1
+    for k, v in fused.gaussians.params().items():
+        assert torch.equal(_bits(v), _bits(plain.gaussians.params()[k])), k
+        for part in ("m", "v"):
+            assert torch.equal(_bits(getattr(fused.adam, part)[k]),
+                               _bits(getattr(plain.adam, part)[k])), \
+                (part, k)

@@ -132,7 +132,12 @@ def test_learning_rates_match_jax():
         joptim.expon_lr(7, 0.0, 0.0))
 
 
-def test_sparse_adam_matches_jax():
+@pytest.mark.parametrize("step", [1, 7])
+@pytest.mark.parametrize("mask", ["absent", "partial", "empty"])
+def test_sparse_adam_matches_jax(mask, step):
+    """The CPU path of sparse_adam_update (the plain chain) against the JAX
+    package's, with no mask, a 60 % one and an empty one, at steps 1 and
+    7."""
     rng = np.random.default_rng(5)
     c = 40
     shapes = dict(xyz=(c, 3), f_dc=(c, 1, 3), opacity_logit=(c, 1),
@@ -143,32 +148,81 @@ def test_sparse_adam_matches_jax():
     g["exposure"][1] = 0.0                 # an image without gradient
     m = {k: f(s, 0.01) for k, s in shapes.items()}
     v = {k: np.abs(f(s, 1e-4)) for k, s in shapes.items()}
-    vis = rng.random(c) < 0.6
-    lrs = optim.param_lrs(OptimizationConfig(), 7, 3.0)
+    vis = dict(absent=None, partial=rng.random(c) < 0.6,
+               empty=np.zeros(c, bool))[mask]
+    lrs = optim.param_lrs(OptimizationConfig(), step, 3.0)
     lrs = {k: lrs[k] for k in shapes}
     t = lambda d: {k: torch.as_tensor(x) for k, x in d.items()}
     j = lambda d: {k: jnp.asarray(x) for k, x in d.items()}
+    launches = optim.sparse_adam_cuda.launches
     got_p, got_s = optim.sparse_adam_update(
-        t(p), t(g), optim.AdamState(m=t(m), v=t(v), step=7),
-        lrs, visible=torch.as_tensor(vis))
+        t(p), t(g), optim.AdamState(m=t(m), v=t(v), step=step - 1),
+        lrs, visible=None if vis is None else torch.as_tensor(vis))
+    assert optim.sparse_adam_cuda.launches == launches   # CPU: the chain
     ref_p, ref_s = joptim.sparse_adam_update(
-        j(p), j(g), joptim.AdamState(m=j(m), v=j(v), step=jnp.int32(7)),
+        j(p), j(g), joptim.AdamState(m=j(m), v=j(v),
+                                     step=jnp.int32(step - 1)),
         {k: jnp.float32(x) for k, x in lrs.items()},
-        visible=jnp.asarray(vis))
-    assert got_s.step == int(ref_s.step) == 8
+        visible=None if vis is None else jnp.asarray(vis))
+    assert got_s.step == int(ref_s.step) == step
     for k in shapes:
         for name, a, b in (("p", got_p, ref_p), ("m", got_s.m, ref_s.m),
                            ("v", got_s.v, ref_s.v)):
             np.testing.assert_allclose(a[k].numpy(), np.asarray(b[k]),
                                        rtol=1e-6, atol=1e-9,
                                        err_msg=f"{name} {k}")
-    # rows outside `visible` and the gradient-free image keep their values
-    np.testing.assert_array_equal(got_p["xyz"].numpy()[~vis], p["xyz"][~vis])
+    # rows outside `visible` and the gradient-free image keep their values;
+    # with no mask every row moves
+    kept = np.zeros(c, bool) if vis is None else ~vis
+    np.testing.assert_array_equal(got_p["xyz"].numpy()[kept], p["xyz"][kept])
+    assert (got_s.m["xyz"].numpy()[~kept] != m["xyz"][~kept]).any(1).all()
     np.testing.assert_array_equal(got_p["exposure"].numpy()[1],
                                   p["exposure"][1])
+    if vis is None:
+        return
     zeroed = optim.zero_rows(got_s, torch.as_tensor(vis), keys=("xyz",))
     assert not zeroed.m["xyz"][torch.as_tensor(vis)].any()
     assert torch.equal(zeroed.m["f_dc"], got_s.m["f_dc"])
+
+
+def _adam_inputs(c=8):
+    z = lambda *s: torch.zeros(s)
+    params = dict(xyz=z(c, 3), f_rest=z(c, 15, 3), exposure=z(1, 3, 4))
+    grads = {k: torch.zeros_like(x) for k, x in params.items()}
+    state = optim.init_adam(params)
+    return params, grads, state, torch.ones(c, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("bad", ["float64", "noncontiguous", "shape", "cpu",
+                                 "mask-dtype"])
+def test_sparse_adam_cuda_checks_before_any_launch(bad, monkeypatch):
+    """The kernel's wrapper refuses a tensor it cannot take, a float64 or
+    non-contiguous one included, with a ValueError before it builds or
+    launches anything."""
+    params, grads, state, visible = _adam_inputs()
+    if bad == "float64":
+        grads["xyz"] = grads["xyz"].double()
+    elif bad == "noncontiguous":
+        state.m["f_rest"] = torch.zeros(8, 3, 15).transpose(1, 2)
+    elif bad == "shape":
+        state.v["xyz"] = torch.zeros(8, 4)
+    elif bad == "mask-dtype":
+        visible = visible.to(torch.uint8)
+    # "cpu": every check passes but the device's
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(rasterize_cuda, "_library", no_build)
+    launches = optim.sparse_adam_cuda.launches
+    rows = optim.counters["adam.rows_fused"]
+    message = dict(float64="float32", noncontiguous="contiguous",
+                   shape="shape", cpu="CUDA", **{"mask-dtype": "bool"})[bad]
+    with pytest.raises(ValueError, match=message):
+        optim.sparse_adam_cuda(params, grads, state,
+                               dict.fromkeys(params, 1e-3), visible)
+    assert optim.sparse_adam_cuda.launches == launches
+    assert optim.counters["adam.rows_fused"] == rows
 
 
 def _scaled_close(got, ref, atol, err_msg):
