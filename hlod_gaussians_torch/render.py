@@ -1,9 +1,9 @@
 """Render facade: project -> SH color -> bin -> blend (port of
 hlod_gaussians_tpu/render.py): render_arrays and its `render` wrapper,
 apply_exposure, tau_to_threshold, and the hierarchical-LOD entry points
-render_lod (budgeted), render_lod_masked (dense cuts), render_lod_auto
-(budget bucketed to the cut, one sync a frame) and render_lod_stream (the
-viewer loop, regulated with a one-frame lag).
+render_lod (budgeted), render_lod_masked (dense cuts) and
+render_lod_stream (the viewer loop, which chooses between the two, regulated
+with a one-frame lag).
 
 ``xy_offset`` is the screen-space hook of the reference's
 ``screenspace_points`` (gaussian_renderer/__init__.py:45-52): an [N,2]
@@ -26,7 +26,6 @@ around its frame, whose feedback it adds to `counters` as it reads it.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,7 +35,6 @@ from hlod_gaussians_torch.hierarchy import cut as cut_mod
 from hlod_gaussians_torch.models.gaussians import NODE_DEPTH, NODE_PARENT
 from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
 from hlod_gaussians_torch.ops.binning import bin_gaussians, tile_grid
-from hlod_gaussians_torch.ops import lod_preprocess as lod_preprocess_ops
 from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
 from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
 from hlod_gaussians_torch.ops.rasterize_xla import (blend_features,
@@ -103,48 +101,45 @@ def render_arrays(
             valid_in=valid, big_limit=cfg.big_limit, max_scale=max_scale)
 
         xy = proj.xy if xy_offset is None else proj.xy + xy_offset
-        valid_b, height_b, max_dup = proj.valid, height, cfg.max_dup
-        if band is not None:
-            xy, valid_b, height_b = _band_local(xy, proj, band, width,
-                                                height, cfg)
-            max_dup = cfg.max_dup // band[1]
         color = sh_ops.sh_color(sh_degree, shs, means3d, campos)
         invdepth_g = 1.0 / torch.clamp_min(proj.depth, 1e-6)
     use_lod = use_lod and ts is not None and kids is not None
     return _bin_and_blend(
         xy, proj.depth, proj.radius, proj.valid, proj.ext, proj.reff2,
-        lambda: blend_features(xy, proj.conic, proj.opacity, color,
-                               invdepth_g, *((ts, kids) if use_lod else ())),
-        bg, width=width, height=height_b, cfg=cfg, k_max=k_max,
-        use_lod=use_lod, want_seen=want_seen, bin_valid=valid_b,
-        max_dup=max_dup)
+        lambda xy: blend_features(xy, proj.conic, proj.opacity, color,
+                                  invdepth_g,
+                                  *((ts, kids) if use_lod else ())),
+        bg, width=width, height=height, cfg=cfg, k_max=k_max,
+        use_lod=use_lod, want_seen=want_seen, band=band)
 
 
 def _bin_and_blend(xy, depth, radius, visible, ext, reff2, features, bg, *,
                    width, height, cfg, k_max, use_lod, want_seen=False,
-                   bin_valid=None, max_dup=None) -> RenderResult:
+                   band=None) -> RenderResult:
     """The tail of every render: bin the rows in `hlod.bin`, then make
-    their feature rows (``features()``, blend_features' layout; made after
-    the binning, so a new table never sits beside its temporaries) and
-    blend them in `hlod.blend`. ``visible`` is the projection's valid;
-    ``bin_valid`` (default ``visible``) the rows binned, ``max_dup``
-    (default cfg.max_dup) the entry capacity, which a band narrows."""
+    their feature rows (``features(xy)``, blend_features' layout at the
+    binned screen positions ``xy``; made after the binning, so a new table
+    never sits beside its temporaries) and blend them in `hlod.blend`.
+    ``visible`` is the projection's valid; ``band`` is render_arrays'."""
     if cfg.backend not in ("pallas", "xla"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
     with span("hlod.bin"):
         # tight alpha-aware coverage on the production path; the scan path
         # keeps the reference's circle rects
         tight = cfg.backend == "pallas" and cfg.tight_binning
+        bin_valid, max_dup = visible, cfg.max_dup
+        if band is not None:
+            xy, bin_valid, height = _band_local(xy, ext, radius, visible,
+                                                band, width, height, cfg)
+            max_dup = cfg.max_dup // band[1]
         bins = bin_gaussians(
-            xy.detach(), depth.detach(), radius,
-            visible if bin_valid is None else bin_valid, width, height,
-            cfg.tile_w, cfg.tile_h,
-            cfg.max_dup if max_dup is None else max_dup,
+            xy.detach(), depth.detach(), radius, bin_valid, width, height,
+            cfg.tile_w, cfg.tile_h, max_dup,
             ext=ext.detach() if tight else None,
             reff2=reff2.detach() if tight else None)
 
     with span("hlod.blend"):
-        feats = features()
+        feats = features(xy)
         kw = dict(width=width, height=height, tile_w=cfg.tile_w,
                   tile_h=cfg.tile_h, use_lod=use_lod, t_eps=cfg.t_eps,
                   alpha_min=cfg.alpha_min)
@@ -160,12 +155,13 @@ def _bin_and_blend(xy, depth, radius, visible, ext, reff2, features, bg, *,
         n_dup=bins.num_candidates)
 
 
-def _band_local(xy, proj, band, width, height, cfg):
-    """Band ``index`` of ``n``: the band-local screen positions (the band
-    starts at y = 0), the Gaussians that can touch the band and its
-    height. The band test uses the tight y half-extent where the binning
-    does (it holds every pixel the blend can touch), else the 3-sigma
-    radius; ext and reff2 are relative, so the shift leaves them valid."""
+def _band_local(xy, ext, radius, valid, band, width, height, cfg):
+    """Band ``index`` of ``n`` of the projected rows: the band-local screen
+    positions (the band starts at y = 0), the rows that can touch the band
+    and its height. The band test uses the tight y half-extent where the
+    binning does (it holds every pixel the blend can touch), else the
+    3-sigma radius; ext and reff2 are relative, so the shift leaves them
+    valid."""
     index, n = band
     _, gh = tile_grid(width, height, cfg.tile_w, cfg.tile_h)
     if gh % n:
@@ -173,9 +169,9 @@ def _band_local(xy, proj, band, width, height, cfg):
     band_h = (gh // n) * cfg.tile_h
     xy = xy - torch.tensor([0.0, float(band_h * index)], device=xy.device)
     tight = cfg.backend == "pallas" and cfg.tight_binning
-    r_y = proj.ext[:, 1] if tight else proj.radius.to(torch.float32)
+    r_y = ext[:, 1] if tight else radius.to(torch.float32)
     in_band = ((xy[:, 1] + r_y) >= 0) & ((xy[:, 1] - r_y) < band_h)
-    return xy, proj.valid & in_band, band_h
+    return xy, valid & in_band, band_h
 
 
 def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
@@ -351,6 +347,7 @@ def render_lod_masked(
     k_max: int = 1024,
     antialiasing: bool = False,
     use_frustum: bool = True,
+    band: Optional[tuple] = None,
 ):
     """Budget-free LOD render for dense cuts: every node is interpolated by
     one lerp over the InterpTable and the cut mask becomes the renderer's
@@ -358,7 +355,8 @@ def render_lod_masked(
     The lerp, the skybox prepend, the projection, SH and B1's feature rows
     are one `lod_preprocess` pass (on the card one kernel launch, which
     reads only the drawn rows of the table); binning and the blend are
-    render_arrays'. Returns (RenderResult, n_selected)."""
+    render_arrays', and so is ``band=(index, n)``, one band of a
+    tile-parallel frame. Returns (RenderResult, n_selected)."""
     cfg = dataclasses.replace(cfg, inference=True)
     cut = _compute_cut(precomputed_cut, boxes, nodes, means3d, scales, alive,
                        campos, world_view, target_size, pcache, use_frustum)
@@ -377,10 +375,15 @@ def render_lod_masked(
             sh_degree=sh_degree, n_skybox=n_skybox, dilation=cfg.dilation,
             near=cfg.near, big_limit=cfg.big_limit,
             antialiasing=antialiasing)
-    out = _bin_and_blend(rows.feats[:, :2], rows.depth, rows.radius,
-                         rows.valid, rows.ext, rows.reff2, lambda: rows.feats,
-                         bg, width=width, height=height, cfg=cfg, k_max=k_max,
-                         use_lod=True)
+    feats = rows.feats
+    out = _bin_and_blend(
+        feats[:, :2], rows.depth, rows.radius, rows.valid, rows.ext,
+        rows.reff2,
+        # a band moves the rows' screen positions to its own origin
+        lambda xy: feats if band is None else torch.cat([xy, feats[:, 2:]],
+                                                        dim=1),
+        bg, width=width, height=height, cfg=cfg, k_max=k_max, use_lod=True,
+        band=band)
     return out, torch.sum(mask)
 
 
@@ -400,14 +403,6 @@ def _budget_bucket(want: int, min_budget: int, max_budget: int,
     return min(max(b, min_budget), max_budget, cap)
 
 
-def _cut_count(boxes, nodes, means3d, scales, alive, campos, world_view,
-               target_size, pcache, *, use_frustum: bool):
-    """The cut's size for render_lod_auto's bucket (one device scalar)."""
-    cut = _compute_cut(None, boxes, nodes, means3d, scales, alive, campos,
-                       world_view, target_size, pcache, use_frustum)
-    return torch.sum(cut.render_mask)
-
-
 def _feedback(out, n_sel):
     """The regulation scalars of a frame packed as one [3] int32 tensor:
     (n_selected, truncated, n_dup)."""
@@ -416,138 +411,16 @@ def _feedback(out, n_sel):
                         out.n_dup.to(torch.int32)])
 
 
-def _stream_frame_masked(means3d, scales, quats, opacities, shs, nodes,
-                         alive, world_view, full_proj, campos, tan_fovx,
-                         tan_fovy, bg, target_size, boxes, pcache,
-                         interp_table, *, sh_degree: int, width: int,
-                         height: int, n_skybox: int, cfg, k_max: int,
-                         antialiasing: bool, use_frustum: bool):
-    """One streaming frame on the masked path + its packed feedback."""
-    out, n_sel = render_lod_masked(
-        means3d, scales, quats, opacities, shs, nodes, alive,
-        world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-        target_size, boxes, pcache, None, interp_table,
-        sh_degree=sh_degree, width=width, height=height, n_skybox=n_skybox,
-        cfg=cfg, k_max=k_max, antialiasing=antialiasing,
-        use_frustum=use_frustum)
-    return out, n_sel, _feedback(out, n_sel)
-
-
-def _stream_frame_budget(means3d, scales, quats, opacities, shs, nodes,
-                         alive, world_view, full_proj, campos, tan_fovx,
-                         tan_fovy, bg, target_size, boxes, pcache,
-                         interp_table, *, sh_degree: int, width: int,
-                         height: int, budget: int, n_skybox: int, cfg,
-                         k_max: int, antialiasing: bool, use_frustum: bool):
-    """One streaming frame on the budgeted path + its packed feedback."""
-    out, n_sel = render_lod(
-        means3d, scales, quats, opacities, shs, nodes, alive,
-        world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-        target_size, boxes, None, pcache, None, interp_table,
-        sh_degree=sh_degree, width=width, height=height, budget=budget,
-        n_skybox=n_skybox, cfg=cfg, k_max=k_max, antialiasing=antialiasing,
-        use_frustum=use_frustum)
-    return out, n_sel, _feedback(out, n_sel)
-
-
-def render_lod_auto(
-    means3d, scales, quats, opacities, shs, nodes, alive,
-    world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-    target_size, boxes=None, pcache=None, interp_table=None,
-    *,
-    sh_degree: int, width: int, height: int,
-    min_budget: int = 4096,
-    max_budget: int = 1 << 20,
-    n_skybox: int = 0,
-    cfg: RasterizerConfig = RasterizerConfig(),
-    k_max: int = 1024,
-    antialiasing: bool = False,
-    use_frustum: bool = True,
-    auto_max_dup: bool = True,
-    md_state: Optional[dict] = None,
-):
-    """render_lod with the budget bucketed to this view's cut: the cut is
-    counted first (one sync), rounded up to a ladder bucket, and the frame
-    renders on the masked path when the bucket reaches a quarter of the
-    tree, else on the budgeted one.
-
-    With ``auto_max_dup`` the binning capacity is bucketed too (4 entries
-    per selected node, floor 2^17) and doubled until the frame is not
-    truncated (a second sync). A persistent ``md_state`` dict remembers the
-    capacity per bucket ("masked" for the masked path), counts the
-    re-renders under "n_escalations" and keeps the interp table ("itab"),
-    for loops over a static tree. Returns (RenderResult, n_selected)."""
-    if interp_table is None and md_state is not None:
-        interp_table = md_state.get("itab")
-        if interp_table is None:
-            interp_table = cut_mod.build_interp_table(
-                dict(means3d=means3d, scales=scales, quats=quats,
-                     opacities=opacities, shs=shs), nodes)
-            md_state["itab"] = interp_table
-
-    n_sel = int(_cut_count(boxes, nodes, means3d, scales, alive, campos,
-                           world_view, target_size, pcache,
-                           use_frustum=use_frustum))
-    budget = _budget_bucket(n_sel, min_budget, max_budget, means3d.shape[0])
-    # past a quarter of the tree the compaction's feature gather costs more
-    # than the masked lerp over every row, as in render_lod_stream
-    use_masked = 4 * budget >= means3d.shape[0]
-    md = max(1 << 17, 4 * budget) if auto_max_dup else cfg.max_dup
-    md_key = "masked" if use_masked else budget
-    if md_state is not None:
-        md = max(md, md_state.get(md_key, 0))
-    frame_args = (means3d, scales, quats, opacities, shs, nodes, alive,
-                  world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-                  target_size, boxes, pcache, interp_table)
-    kw = dict(sh_degree=sh_degree, width=width, height=height,
-              n_skybox=n_skybox, k_max=k_max, antialiasing=antialiasing,
-              use_frustum=use_frustum)
-    while True:
-        cfg_f = dataclasses.replace(cfg, max_dup=min(md, cfg.max_dup)) \
-            if auto_max_dup else cfg
-        if use_masked:
-            out, n, fb = _stream_frame_masked(*frame_args, cfg=cfg_f, **kw)
-        else:
-            out, n, fb = _stream_frame_budget(*frame_args, cfg=cfg_f,
-                                              budget=budget, **kw)
-        truncated = bool(fb[1])
-        if not auto_max_dup or md >= cfg.max_dup or not truncated:
-            if md_state is not None:
-                md_state[md_key] = md
-            return out, n
-        # a re-render of the whole frame: count it (or warn), so a capacity
-        # regression shows as a counter and not as a slowdown
-        if md_state is not None:
-            md_state["n_escalations"] = md_state.get("n_escalations", 0) + 1
-        else:
-            warnings.warn(
-                f"render_lod_auto: max_dup {md} truncated, re-rendering at "
-                f"{md * 2} (pass md_state to remember per-bucket capacity)",
-                stacklevel=2)
-        md *= 2
-
-
-class _Feedback(tuple):
-    """A frame's feedback on its way to the host: the pair (host tensor,
-    event), as the stream's readers unpack it, with ``fused``, whether the
-    frame launched the lod_preprocess kernel."""
-
-    def __new__(cls, host, event, fused: bool):
-        self = super().__new__(cls, (host, event))
-        self.fused = fused
-        return self
-
-
-def _to_host_async(fb, fused: bool) -> _Feedback:
-    """Start fb's copy to the host: on the card into a pinned tensor, with
-    an event recorded after the copy."""
+def _to_host_async(fb):
+    """Start fb's copy to the host: (host tensor, event), on the card into a
+    pinned tensor with an event recorded after the copy, else (fb, None)."""
     if not fb.is_cuda:
-        return _Feedback(fb, None, fused)
+        return fb, None
     host = torch.empty(fb.shape, dtype=fb.dtype, pin_memory=True)
     host.copy_(fb, non_blocking=True)
     event = torch.cuda.Event()
     event.record()
-    return _Feedback(host, event, fused)
+    return host, event
 
 
 def render_lod_stream(
@@ -586,11 +459,12 @@ def render_lod_stream(
     which counts its cut once (a sync) to seed the bucket. It holds
     "budget", "md" (the capacity high-water per bucket, "MASKED" for the
     masked path), "shrink" (frames the cut has wanted a smaller bucket),
-    "n_truncated_frames" and the pending feedback. As it reads a frame's feedback it adds to `counters` the
-    nodes drawn (n_selected, at most the budget) and the rows
-    interpolated: the budget on the budgeted path; on the masked path
-    n_selected where the frame launched the lod_preprocess kernel, which
-    lerps the drawn rows alone, else the tree's. Returns (RenderResult, n_selected device scalar)."""
+    "n_truncated_frames" and the pending feedback. As it reads a frame's
+    feedback it adds to `counters` the nodes drawn (n_selected, at most the
+    budget) and the rows interpolated: the budget on the budgeted path; on
+    the masked path n_selected where the tree is on a CUDA device, whose
+    lod_preprocess kernel lerps the drawn rows alone, else the tree's.
+    Returns (RenderResult, n_selected device scalar)."""
     with span("hlod.lod_stream"):
         cap = means3d.shape[0]
 
@@ -607,10 +481,11 @@ def render_lod_stream(
             state["shrink"] = 0
 
         budget = state["budget"]
-        frame_args = (means3d, scales, quats, opacities, shs, nodes, alive,
-                      world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-                      target_size, boxes, pcache, interp_table)
-        kw = dict(sh_degree=sh_degree, width=width, height=height,
+        args = (means3d, scales, quats, opacities, shs, nodes, alive,
+                world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
+                target_size, boxes)
+        kw = dict(pcache=pcache, interp_table=interp_table,
+                  sh_degree=sh_degree, width=width, height=height,
                   n_skybox=n_skybox, k_max=k_max, antialiasing=antialiasing,
                   use_frustum=use_frustum)
         # dense cuts skip the compaction and the feature gather: render masked
@@ -621,31 +496,28 @@ def render_lod_stream(
             # an undershooting first capacity: the n_dup feedback grows it in
             # <= 2 frames, while an overshoot would stay (md only grows)
             md = state["md"].get(budget, max(md_floor, cap // 2))
-            launches = lod_preprocess_ops.lod_preprocess.launches
-            out, n_sel, fb = _stream_frame_masked(
-                *frame_args, cfg=dataclasses.replace(
+            out, n_sel = render_lod_masked(
+                *args, cfg=dataclasses.replace(
                     cfg, max_dup=min(md, cfg.max_dup)), **kw)
-            # a kernel launch lerps the drawn rows alone
-            fused = lod_preprocess_ops.lod_preprocess.launches > launches
         else:
-            fused = False
             md = state["md"].get(budget, max(md_floor, 2 * budget))
-            out, n_sel, fb = _stream_frame_budget(
-                *frame_args, cfg=dataclasses.replace(
+            out, n_sel = render_lod(
+                *args, cfg=dataclasses.replace(
                     cfg, max_dup=min(md, cfg.max_dup)), budget=budget, **kw)
-        feedback = _to_host_async(fb, fused)
+        feedback = _to_host_async(_feedback(out, n_sel))
 
         # the previous frame's feedback: its work ran while this frame was
         # being dispatched
         prev = state.pop("pending", None)
         if prev is not None:
-            p_feedback, p_budget, p_md = prev
-            p_host, p_event = p_feedback
+            (p_host, p_event), p_budget, p_md = prev
             if p_event is not None:
                 p_event.synchronize()
             p_n, p_trunc, p_dup = p_host.tolist()
-            rows = (p_n if p_feedback.fused else
-                    cap if p_budget == "MASKED" else p_budget)
+            # on the card (an event) the masked path's kernel lerps the
+            # drawn rows alone; its plain version lerps every row
+            rows = (p_budget if p_budget != "MASKED" else
+                    p_n if p_event is not None else cap)
             counters["lod.nodes_drawn"] += min(p_n, rows)
             counters["lod.rows_interpolated"] += rows
             # the capacity hugs the observed entry demand (n_dup: exact when

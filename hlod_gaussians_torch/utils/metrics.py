@@ -23,7 +23,8 @@ switch.
 holds on the host: render_lod_stream adds each frame's feedback as it
 reads it, `lod.nodes_drawn` (the cut's nodes drawn) and
 `lod.rows_interpolated` (the rows the frame's interpolation lerped: the
-drawn rows alone where the lod_preprocess kernel ran it);
+drawn rows alone on the masked path on a CUDA device, where the
+lod_preprocess kernel runs it);
 full_train.read_post_step adds each post step's feedback it reads,
 `post.ws_rows` (the SPT cut's working-set rows) and
 `post.rows_projected` (the rows the step's per-row work covered: the

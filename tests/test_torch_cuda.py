@@ -392,9 +392,8 @@ def test_cuda_stream_tau0_kernel_matches_plain_chain(cuda_device,
     card, through the lod_preprocess kernel and through its plain version
     (the chain as separate PyTorch kernels): images within chip_smoke.py's
     FRAME_ATOL, the same n_dup, one kernel launch a frame, and the
-    counters: the drawn rows as the rows interpolated through the kernel,
-    the tree's through the plain chain.
-    render_lod_auto's masked frame launches it once as well."""
+    counters, which follow the device: the drawn rows as the rows
+    interpolated, through either chain."""
     from hlod_gaussians_torch.utils.metrics import counters
     t, nodes, alive, itab = _lod_scene(cuda_device)
     cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=16,
@@ -432,25 +431,10 @@ def test_cuda_stream_tau0_kernel_matches_plain_chain(cuda_device,
     # the feedback of the frame before the last is read; the last waits
     assert added == {"lod.nodes_drawn": sum(n_sel[:-1]),
                      "lod.rows_interpolated": sum(n_sel[:-1])}
-    # render_lod_auto takes the masked path at this cut: one launch too
-    cam = cams[-1]
-    with torch.no_grad():
-        auto, n_auto = render.render_lod_auto(
-            t["pos"], t["scale"], t["quat"], t["opacity"], t["sh"], nodes,
-            alive, cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
-            cam.tan_fovy, torch.zeros(3, device=cuda_device), 1e-9, None,
-            None, itab, sh_degree=3, width=W, height=H, cfg=cfg,
-            use_frustum=False, md_state={})
-    assert lod_preprocess.launches == launches + len(cams) + 1
-    assert int(n_auto) == fused[-1][2]
-    torch.testing.assert_close(auto.image, fused[-1][0], atol=FRAME_ATOL,
-                               rtol=0)
     monkeypatch.setattr(render, "lod_preprocess", lod_preprocess_plain)
-    plain, added = counted(frames)
-    assert lod_preprocess.launches == launches + len(cams) + 1
-    assert added == {"lod.nodes_drawn": sum(n_sel[:-1]),
-                     "lod.rows_interpolated": (len(cams) - 1)
-                     * nodes.shape[0]}
+    plain, added_plain = counted(frames)
+    assert lod_preprocess.launches == launches + len(cams)
+    assert added_plain == added
     for (gi, gd, gn, gt), (pi, pd, pn, pt) in zip(fused, plain):
         assert (gd, gn, gt) == (pd, pn, pt) and not gt and gn > 0
         torch.testing.assert_close(gi, pi, atol=FRAME_ATOL, rtol=0)
@@ -926,7 +910,9 @@ def test_cuda_tile_parallel_gloo_world_matches_one_rank(cuda_device,
                                                         tmp_path):
     """render_tile_parallel and render_lod_tile_parallel in a Gloo world
     of two ranks on the card (B1 on each band) against render_arrays and
-    render_lod_masked on one rank: n_selected equal, images to 2e-5."""
+    render_lod_masked on one rank: n_selected equal, images to 2e-5, each
+    rank's LOD band through one lod_preprocess launch a backend, as the
+    one-rank frame."""
     import json
     import os
     import sys
@@ -968,6 +954,7 @@ def test_cuda_tile_parallel_gloo_world_matches_one_rank(cuda_device,
     z["spec"] = json.dumps(dict(tile_cfg=cfg, tile_wh=[48, 48]))
     np.savez(tmp_path / "in.npz", **z)
     launches = rasterize_cuda.blend_forward.launches
+    fused = lod_preprocess.launches
     spawn_world(worker.run_tasks, 2, (["tiles"], str(tmp_path / "in.npz"),
                                       str(tmp_path), "cuda"),
                 device=cuda_device, timeout_s=300.0, tmpdir=str(tmp_path))
@@ -988,12 +975,15 @@ def test_cuda_tile_parallel_gloo_world_matches_one_rank(cuda_device,
             width=48, height=48, cfg=RasterizerConfig(**cfg),
             use_frustum=False)
     assert rasterize_cuda.blend_forward.launches == launches + 2
+    assert lod_preprocess.launches == fused + 1
     for r in range(2):
         got = np.load(tmp_path / f"tiles_rank{r}.npz")
         assert not bool(got["pallas/flat_trunc"])
         np.testing.assert_allclose(got["pallas/flat"],
                                    one.image.cpu().numpy(), atol=ATOL)
         assert int(got["pallas/lod_n"]) == int(n_sel) > 0
+        assert int(got["pallas/lod_fused"]) == int(got["xla/lod_fused"]) == 1
+        assert not bool(got["pallas/lod_trunc"])
         np.testing.assert_allclose(got["pallas/lod"],
                                    lod.image.cpu().numpy(), atol=ATOL)
 

@@ -1,7 +1,8 @@
 """Port parity for the hierarchical-LOD serving render on the reference-built
 oracle hierarchy (tests/fixtures/oracle/hierarchy.dhier.gz): load_dhier,
 create_from_dhier with skybox rows, the dynamic cut, and render_lod against
-the JAX package (cut mask and n_selected exact, image atol 2e-5)."""
+the JAX package (cut mask and n_selected exact, image atol 2e-5);
+render_lod_masked's bands against its own unbanded frame."""
 
 import gzip
 import os
@@ -23,6 +24,7 @@ from hlod_gaussians_torch.config import RasterizerConfig
 from hlod_gaussians_torch.data import dhier as tdhier
 from hlod_gaussians_torch.hierarchy import cut as tcut
 from hlod_gaussians_torch.models import gaussians as tgm
+from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
 from hlod_gaussians_torch.train import post as tpost
 from hlod_gaussians_torch.utils.camera import make_camera
 
@@ -112,3 +114,50 @@ def test_render_lod_matches_jax(states, tau):
     np.testing.assert_array_equal(tout.n_contrib.numpy(),
                                   np.asarray(jout.n_contrib))
     assert float(tout.image.max()) > 0.05
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_render_lod_masked_bands_stack_to_the_frame(states, n):
+    """render_lod_masked's band=(i, n), rendered band by band in one
+    process and stacked, equals the unbanded frame (atol 2e-5, n_selected
+    equal): the tile-parallel ranks' frame, with the prepended skybox rows
+    drawn across the band edges."""
+    _, _, _, ts = states
+    ta = tgm.activate(ts)
+    tc = make_camera(np.eye(3), np.zeros(3), FOVX, FOVY, W, H, device=CPU)
+    target = trender.tau_to_threshold(3.0, tc.tan_fovx, W)
+    # 12 tile rows of 8 pixels: 6 or 3 a band
+    cfg = RasterizerConfig(backend="pallas", tile_w=16, tile_h=8,
+                           max_dup=1 << 16)
+    args = (ta.means3d, ta.scales, ta.quats, ta.opacities, ta.shs, ts.nodes,
+            ts.alive, tc.world_view, tc.full_proj, tc.campos, tc.tan_fovx,
+            tc.tan_fovy, torch.zeros(3), target)
+    kw = dict(sh_degree=3, width=W, height=H, n_skybox=SKY, cfg=cfg)
+    with torch.no_grad():
+        whole, n_whole = trender.render_lod_masked(*args, **kw)
+        bands = [trender.render_lod_masked(*args, band=(i, n), **kw)
+                 for i in range(n)]
+    assert not bool(whole.truncated) and int(n_whole) > 0
+    # some drawn skybox row reaches over a band edge
+    cut = tcut.expand_to_size_dynamic(
+        ts.nodes, ta.means3d, torch.max(ta.scales, dim=1).values, ts.alive,
+        tc.campos, tc.world_view[:3, 2], target)
+    rows = lod_preprocess(
+        tcut.build_interp_table(dict(
+            means3d=ta.means3d, scales=ta.scales, quats=ta.quats,
+            opacities=ta.opacities, shs=ta.shs), ts.nodes),
+        cut.render_mask, cut.ts, cut.kids, ts.alive, tc.world_view,
+        tc.full_proj, tc.campos, tc.tan_fovx, tc.tan_fovy, width=W,
+        height=H, sh_degree=3, n_skybox=SKY)
+    y, r_y = rows.feats[:SKY, 1], rows.ext[:SKY, 1]
+    edges = torch.arange(1, n) * (H // n)
+    crossing = ((y[:, None] - r_y[:, None] < edges)
+                & (y[:, None] + r_y[:, None] >= edges)).any(dim=1)
+    assert bool((crossing & rows.valid[:SKY]).any())
+    for out, n_sel in bands:
+        assert int(n_sel) == int(n_whole) and not bool(out.truncated)
+        assert out.image.shape == (3, H // n, W)
+    for k in ("image", "invdepth", "final_t", "n_contrib"):
+        got = torch.cat([getattr(out, k) for out, _ in bands], dim=-2)
+        np.testing.assert_allclose(got.numpy(), getattr(whole, k).numpy(),
+                                   atol=2e-5, err_msg=k)

@@ -2,8 +2,7 @@
 reference traversal (tests/fixtures/oracle/traversal.bin.gz), the box and
 dynamic cuts with and without a parent cache, the interp table, and the LOD
 entry points render_lod (boxes, pcache, interp table, cut_mask),
-render_lod_masked, render_lod_auto and render_lod_stream against the JAX
-package: images atol 2e-5, n_selected exact, and the stream's regulation
+render_lod_masked and render_lod_stream against the JAX package: images atol 2e-5, n_selected exact, and the stream's regulation
 state (budget, md, shrink, path) equal frame by frame."""
 
 import gzip
@@ -285,7 +284,7 @@ def test_render_lod_boxes_pcache_table_matches_jax():
     assert int(tn) == 2
 
 
-def test_render_lod_masked_and_auto_match_jax():
+def test_render_lod_masked_matches_jax():
     tree = _tree()
     (targs, _), (jargs, _) = _args(tree, False), _args(tree, True)
     cfg = RasterizerConfig(tile_w=16, tile_h=16, max_dup=4096)
@@ -297,16 +296,6 @@ def test_render_lod_masked_and_auto_match_jax():
     # the masked path renders what the budgeted one does
     bout, bn = trender.render_lod(*targs, 0.01, budget=96, cfg=cfg, **kw)
     _same_render(bout, bn, jout, jn)
-
-    t_state, j_state = {}, {}
-    for target in (1e-9, 0.03, 1e-9):
-        tout, tn = trender.render_lod_auto(*targs, target, cfg=cfg,
-                                           md_state=t_state, **kw)
-        jout, jn = jrender.render_lod_auto(*jargs, jnp.float32(target),
-                                           cfg=jcfg, md_state=j_state, **kw)
-        _same_render(tout, tn, jout, jn)
-        assert ({k: v for k, v in t_state.items() if k != "itab"}
-                == {k: v for k, v in j_state.items() if k != "itab"})
 
 
 def _state_view(st):

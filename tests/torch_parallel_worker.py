@@ -175,11 +175,13 @@ def _boost(ts):
 def task_tiles(rank, n, z, device):
     """render_tile_parallel of the stored flat scene ("flat/") and
     render_lod_tile_parallel of the stored tree ("lod/"), whichever the
-    inputs hold, over the n ranks with the pallas and xla backends."""
+    inputs hold, over the n ranks with the pallas and xla backends; the
+    LOD frame's lod_preprocess kernel launches under "lod_fused"."""
     import dataclasses
 
     from hlod_gaussians_torch.config import RasterizerConfig
     from hlod_gaussians_torch.hierarchy import cut as hc
+    from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
     from hlod_gaussians_torch.parallel import data_parallel as dp
     from hlod_gaussians_torch.parallel import tile_parallel as tp
 
@@ -206,6 +208,7 @@ def task_tiles(rank, n, z, device):
                 params = {k: t("lod/" + k) for k in
                           ("means3d", "scales", "quats", "opacities", "shs")}
                 table = hc.build_interp_table(params, t("lod/nodes"))
+                fused = lod_preprocess.launches
                 img_l, n_sel, trunc_l = tp.render_lod_tile_parallel(
                     params["means3d"], params["scales"], params["quats"],
                     params["opacities"], params["shs"], t("lod/nodes"),
@@ -216,7 +219,9 @@ def task_tiles(rank, n, z, device):
                     use_frustum=False)
                 out.update({f"{backend}/lod": img_l.cpu().numpy(),
                             f"{backend}/lod_n": int(n_sel),
-                            f"{backend}/lod_trunc": bool(trunc_l)})
+                            f"{backend}/lod_trunc": bool(trunc_l),
+                            f"{backend}/lod_fused":
+                                lod_preprocess.launches - fused})
     return out
 
 
