@@ -45,7 +45,8 @@ Phases (any failure raises and exits non-zero):
      full width (the bench scene perturbed, fit toward its own 1080p
      render, SH 3, the serving config): every step untruncated with a
      finite loss and exactly one B1 and one B2 launch, the last loss below
-     the first; step median and the forward / backward / Adam split.
+     the first, exactly one train_preprocess forward and backward launch a
+     step; step median and the forward / backward / Adam split.
   6. full-size hierarchical LOD: hierarchy.build.build_hierarchy on the
      card over the JAX package's LOD bench leaves (2^19 points, bench.py
      :168-176, SH widened to degree 3): the 1,048,575-node tree passes
@@ -85,6 +86,17 @@ Phases (any failure raises and exits non-zero):
      the chain's and its kernel count (the profiler), the byte bound (28
      bytes a float of a row in the mask, 24 outside it). Phases 5 and 12 time both at their own steps; the kernel table counts
      its launches by path.
+  11d. kernels train_preprocess_forward and train_preprocess_backward at
+     the train and post cells' states (2,959,677 rows at SH 3, all in the
+     mask, the screen-space offset; 4,194,304 rows at SH 1 of SH 3 stored,
+     42 % in it), drawn from a seed on the card, against the plain chain
+     and its autograd gradient on the card: valid and radius equal but for
+     boundary rows, feature rows to 2e-5, each leaf's gradient within 1e-4
+     of the larger of its norm and the median leaf's; each kernel's time
+     over 20 back-to-back launches beside its byte bound, the plain chain's
+     forward and backward and its device kernel count (the profiler).
+     Phase 5 holds every step to one launch of each; the kernel table counts
+     the forward's launches by path.
   12. hierarchy post-optimization at the JAX package's post bench point
      (scripts/offload_bench3.py): build_hierarchy on the card over 2^21
      leaves (4,194,303 nodes, SH 1), the SPT forest, a 40-view 1080p orbit
@@ -260,6 +272,16 @@ OPS_LODPRE = 177 + 80 + 200 + 55 + 96
 ADAM_CELLS = {"train": (2_959_677, 1.0), "post": (4_194_304, 0.42)}
 ADAM_ROW_FLOATS = 59
 OPS_ADAM = 13
+# kernels train_preprocess_forward / _backward (csrc/train_preprocess.cu)
+# at the training cells' states (benchmark/configs/): rows, the share in the
+# step's mask, the step's SH degree and whether the screen-space offset is
+# given; f_rest stores 15 coefficients in both. f32 operations a row in the
+# mask at SH 3: the activations and cov3d (about 100), the projection
+# (about 200), SH 3 (about 150), the feature row; the backward recomputes
+# them and runs their reverse (about 1,000 more)
+TRAINPRE_CELLS = {"train": (2_959_677, 1.0, 3, True),
+                  "post": (4_194_304, 0.42, 1, False)}
+OPS_TRAINPRE = (600, 1600)
 GRAD_SCALED_ATOL = 3e-4
 TRAIN_STEPS = 8
 # the JAX package's LOD bench tree (bench.py:145-253): 2^19 leaves, a
@@ -357,8 +379,8 @@ def ptxas_lines(build_log):
     registers, ...") for the flat kernel at 4 pixels a thread."""
     kernel_name = "?"
     for line in build_log.splitlines():
-        m = re.search(r"(blend_(?:forward|backward)_kernel)I(\w*?)EEv",
-                      line)
+        m = re.search(r"((?:blend|train_preprocess)_(?:forward|backward)"
+                      r"_kernel)I(\w*?)EEv", line)
         if m:
             args = re.findall(r"L[bi](\d+)E", m.group(2) + "E")
             kernel_name = f"{m.group(1)}<{', '.join(args)}>"
@@ -643,14 +665,16 @@ def train_phase(ts, cam_args, gt, bg, cfg, width, height, extent=8.0):
     from hlod_gaussians_torch import optim
     from hlod_gaussians_torch.config import OptimizationConfig
     from hlod_gaussians_torch.ops import rasterize_cuda
+    from hlod_gaussians_torch.ops import train_preprocess as tp
     from hlod_gaussians_torch.train import flat
     b1, b2 = rasterize_cuda.blend_forward, rasterize_cuda.blend_backward
+    tpf, tpb = tp.train_preprocess_forward, tp.train_preprocess_backward
     opt = OptimizationConfig()
     step_kw = dict(exposure_idx=0, scene_extent=extent, opt=opt, cfg=cfg,
                    width=width, height=height, sh_degree=3)
     losses, step_ms, host_ms = [], [], []
     for i in range(TRAIN_STEPS):
-        before = (b1.launches, b2.launches)
+        before = (b1.launches, b2.launches, tpf.launches, tpb.launches)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -661,12 +685,14 @@ def train_phase(ts, cam_args, gt, bg, cfg, width, height, extent=8.0):
         host_ms.append((time.perf_counter() - t0) * 1e3)
         step_ms.append(a.elapsed_time(b))
         losses.append(float(aux.loss))
-        delta = (b1.launches - before[0], b2.launches - before[1])
+        delta = (b1.launches - before[0], b2.launches - before[1],
+                 tpf.launches - before[2], tpb.launches - before[3])
         if (bool(aux.truncated) or not np.isfinite(losses[-1])
-                or delta != (1, 1)):
+                or delta != (1, 1, 1, 1)):
             raise AssertionError(f"train step {i}: truncated "
                                  f"{bool(aux.truncated)}, loss {losses[-1]}, "
-                                 f"(B1, B2) launches {delta}")
+                                 f"(B1, B2, train_preprocess forward, "
+                                 f"backward) launches {delta}")
     launches = (b1.launches, b2.launches)      # before the split's runs
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training did not lower the loss: {losses}")
@@ -2251,6 +2277,160 @@ def sparse_adam_entry(adr, launches_by_path):
             "bound_ms": adr["train"]["bound_ms"],
             "bound_by": adr["train"]["bound_by"], "library_ms": None,
             "post_state": adr["post"]}
+
+
+def train_preprocess_phase(dev, smi):
+    """Phase [11d]: the train_preprocess kernels against the plain chain
+    and its autograd gradient on the card at the training cells' states
+    (parameters drawn from a seed, the 1080p bench camera, a gradient of
+    the feature rows on the rows in the mask): valid and radius equal but
+    for a share of boundary rows, the feature rows of the rows valid in
+    both to 2e-5, every leaf's gradient gap (the benchmark's grad_gap) to
+    1e-4; each kernel's time (CUDA events over 20 back-to-back launches)
+    beside its byte bound, the plain chain's forward and backward times
+    and its device kernels (the profiler)."""
+    import torch
+    from hlod_gaussians_torch.ops import train_preprocess as tp
+    from hlod_gaussians_torch.utils.camera import make_camera
+    fwd0 = tp.train_preprocess_forward.launches
+    bwd0 = tp.train_preprocess_backward.launches
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, 1920, 1080,
+                      device=dev)
+    out = {}
+    for cell, (rows, share, deg, offset) in TRAINPRE_CELLS.items():
+        log(f"[11d] kernels train_preprocess at the {cell} cell's state: "
+            f"{rows} rows at SH {deg} of SH 3 stored, {share:.0%} in the "
+            f"mask, offset {offset}")
+        g = torch.Generator(device=dev).manual_seed(rows)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        xyz = randn(rows, 3) * 10.0
+        xyz[:, 2] += 30.0
+        p = [xyz, randn(rows, 3) * 0.3 - 4.24, randn(rows, 4),
+             randn(rows, 1) * 1.5, randn(rows, 1, 3) * 0.3,
+             randn(rows, 15, 3) * 0.05]
+        mask = torch.rand((rows,), generator=g, device=dev) < share
+        xy = torch.zeros((rows, 2), device=dev) if offset else None
+        g_feats = randn(rows, 12) * 1e-3 * mask[:, None]
+        args = (mask, cam.world_view, cam.full_proj, cam.campos,
+                cam.tan_fovx, cam.tan_fovy)
+        kw = dict(width=1920, height=1080, sh_degree=deg, dilation=0.3,
+                  near=0.2, big_limit=float("inf"), antialiasing=False,
+                  alpha_min=1.0 / 255.0)
+
+        def fwd_bwd(fn):
+            leaves = [t.detach().requires_grad_(True) for t in p]
+            xl = None if xy is None else xy.detach().requires_grad_(True)
+            o = fn(*leaves, *args, xl, **kw)
+            wrt = leaves + ([] if xl is None else [xl])
+            return o, torch.autograd.grad(o.feats, wrt, g_feats)
+
+        got, got_g = fwd_bwd(tp.train_preprocess)
+        ref, ref_g = fwd_bwd(tp.train_preprocess_plain)
+        torch.cuda.synchronize()
+        n_in = int(mask.sum())
+        both = got.valid & ref.valid
+        valid_diff = int((got.valid != ref.valid).sum())
+        radius_diff = int((got.radius != ref.radius).sum())
+        err = float(((got.feats.detach() - ref.feats.detach())[both].abs()
+                     / ref.feats.detach()[both].abs().clamp_min(1.0)).max())
+        norms = [float(r.norm()) for r in ref_g]
+        med = statistics.median(norms)
+        gap = max(float((a - b).norm()) / max(nb, med, 1e-30)
+                  for a, b, nb in zip(got_g, ref_g, norms))
+        log(f"  {n_in} in the mask, {int(ref.valid.sum())} valid; rows whose "
+            f"valid differs {valid_diff}, radius {radius_diff}; largest "
+            f"feature error on valid rows {err:.3e} (relative above 1); "
+            f"largest leaf gradient gap {gap:.3e}")
+        if (valid_diff + radius_diff > 1e-5 * n_in or err > 2e-5
+                or gap > 1e-4 or not bool(torch.isfinite(got.feats).all())):
+            raise AssertionError("train_preprocess disagrees with the plain "
+                                 "chain")
+        del got, ref, got_g, ref_g
+
+        pc = [t.contiguous() for t in p]
+        camt = (*(t.contiguous() for t in args[1:4]), cam.tan_fovx,
+                cam.tan_fovy)
+        reps = 20
+
+        def forwards():
+            for _ in range(reps):
+                tp.train_preprocess_forward(pc, mask, xy, camt, kw)
+
+        def backwards():
+            for _ in range(reps):
+                tp.train_preprocess_backward(pc, mask, xy, camt, kw,
+                                             g_feats)
+
+        fwd_ms = cuda_time_ms(forwards, 3, warmup=1) / reps
+        bwd_ms = cuda_time_ms(backwards, 3, warmup=1) / reps
+        leaves = [t.detach().requires_grad_(True) for t in p]
+        xl = None if xy is None else xy.detach().requires_grad_(True)
+        wrt = leaves + ([] if xl is None else [xl])
+        plain_fwd_ms = cuda_time_ms(
+            lambda: tp.train_preprocess_plain(*leaves, *args, xl, **kw), 3)
+        plain_ms = cuda_time_ms(lambda: fwd_bwd(tp.train_preprocess_plain), 3)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fwd_bwd(tp.train_preprocess_plain)
+            torch.cuda.synchronize()
+        plain_kernels = sum(1 for e in prof.events() if e.device_type
+                            == torch.autograd.DeviceType.CUDA)
+        del leaves, xl, wrt
+        # bytes: a row in the mask reads its parameters (14 floats and the
+        # degree's f_rest floats), every row its mask byte and, where given,
+        # its offset (forward); the forward writes 69 bytes a row, the
+        # backward reads the gradient row in the mask (48 bytes; x and y
+        # outside it where the offset is given) and writes every gradient
+        # row (14 + 45 floats, the offset's 8 bytes)
+        par = 4 * (14 + 3 * ((deg + 1) ** 2 - 1))
+        off = 8 if offset else 0
+        fwd_bytes = n_in * par + rows * (1 + off + 69)
+        bwd_bytes = (n_in * (par + 48) + (rows - n_in) * (16 if offset
+                                                           else 0)
+                     + rows * (1 + 4 * 59 + off))
+        f_bound, f_by, f_parts = bound(fwd_bytes, OPS_TRAINPRE[0] * n_in)
+        b_bound, b_by, b_parts = bound(bwd_bytes, OPS_TRAINPRE[1] * n_in)
+        log(f"  forward {fwd_ms:.4f} ms ({fwd_ms / f_bound:.2f}x its bound "
+            f"{f_bound:.4f} ms, {f_by}; {f_parts}; {fwd_bytes} bytes), "
+            f"backward {bwd_ms:.4f} ms ({bwd_ms / b_bound:.2f}x its bound "
+            f"{b_bound:.4f} ms, {b_by}; {b_parts}; {bwd_bytes} bytes); "
+            f"plain chain forward {plain_fwd_ms:.3f} ms, forward + backward "
+            f"{plain_ms:.3f} ms, {plain_kernels} device kernels [{smi}]")
+        out[cell] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_bound_ms=f_bound,
+                         bwd_bound_ms=b_bound, bound_by=f_by,
+                         plain_fwd_ms=plain_fwd_ms, plain_ms=plain_ms,
+                         plain_kernels=plain_kernels, max_rel_err=err,
+                         grad_gap=gap, valid_diff=valid_diff,
+                         radius_diff=radius_diff)
+        del p, pc, mask, xy, g_feats, xyz
+        torch.cuda.empty_cache()
+    out["launches"] = tp.train_preprocess_forward.launches - fwd0
+    out["bwd_launches"] = tp.train_preprocess_backward.launches - bwd0
+    return out
+
+
+def train_preprocess_entry(tpr, launches_by_path):
+    """The kernel table's line for train_preprocess (forward and backward,
+    one launch each a training step): the forward's launches by path and
+    [11d]'s own, its numbers at both training cells' states."""
+    return {"name": "train_preprocess", "route": "cuda",
+            "source": "hlod_gaussians_torch/csrc/train_preprocess.cu",
+            "replaces": None,
+            "launches": sum(launches_by_path.values()) + tpr["launches"],
+            "launches_by_path": dict(launches_by_path,
+                                     kernel_check=tpr["launches"]),
+            "max_rel_err": max(tpr[c]["max_rel_err"]
+                               for c in TRAINPRE_CELLS),
+            "grad_gap": max(tpr[c]["grad_gap"] for c in TRAINPRE_CELLS),
+            "ms": tpr["train"]["fwd_ms"] + tpr["train"]["bwd_ms"],
+            "plain_ms": tpr["train"]["plain_ms"],
+            "bound_ms": (tpr["train"]["fwd_bound_ms"]
+                         + tpr["train"]["bwd_bound_ms"]),
+            "bound_by": tpr["train"]["bound_by"], "library_ms": None,
+            "train_state": tpr["train"], "post_state": tpr["post"]}
 
 
 def lod_preprocess_entry(lpr, launches_by_path):
@@ -4433,6 +4613,8 @@ def main():
     from hlod_gaussians_torch.ops.rasterize_xla import (blend_backward_plain,
                                                         blend_features,
                                                         blend_forward_plain)
+    from hlod_gaussians_torch.ops.train_preprocess import (
+        train_preprocess_forward)
     from hlod_gaussians_torch.train import flat
     from hlod_gaussians_torch.train.post import create_from_dhier
     from hlod_gaussians_torch.utils.camera import make_camera
@@ -4754,10 +4936,12 @@ def main():
                 cam0.tan_fovy)
     kernel.launches = kernel_b2.launches = 0
     fused_before = lod_preprocess.launches
-    adam_launches = {}
+    adam_launches, tp_launches = {}, {}
     adam_before = optim.sparse_adam_cuda.launches
+    tp_before = train_preprocess_forward.launches
     tr = train_phase(ts, cam_args, gt, bg, cfg, width, height)
     adam_launches["train"] = optim.sparse_adam_cuda.launches - adam_before
+    tp_launches["train"] = train_preprocess_forward.launches - tp_before
     train_launches, train_b2 = tr["launches"]
     train_lp = lod_preprocess.launches - fused_before
     if train_lp:
@@ -4781,10 +4965,13 @@ def main():
     torch.cuda.empty_cache()
     lpr = lod_preprocess_phase(dev, smi)
     adr = sparse_adam_phase(dev, smi)
+    tpr = train_preprocess_phase(dev, smi)
 
     adam_before = optim.sparse_adam_cuda.launches
+    tp_before = train_preprocess_forward.launches
     postr = post_phase(dev, width, height, smi)
     adam_launches["post"] = optim.sparse_adam_cuda.launches - adam_before
+    tp_launches["post"] = train_preprocess_forward.launches - tp_before
     max_err = max(max_err, postr["b1_err"])
     b2_err = max(b2_err, postr["b2_err"])
     torch.cuda.empty_cache()
@@ -4909,7 +5096,10 @@ def main():
                                       train=train_lp)),
         sparse_adam_entry(adr, dict(
             adam_launches, other=optim.sparse_adam_cuda.launches
-            - adr["launches"] - sum(adam_launches.values())))]}))
+            - adr["launches"] - sum(adam_launches.values()))),
+        train_preprocess_entry(tpr, dict(
+            tp_launches, other=train_preprocess_forward.launches
+            - tpr["launches"] - sum(tp_launches.values())))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

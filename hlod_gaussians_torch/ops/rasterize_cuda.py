@@ -14,7 +14,8 @@ pixels.
 Build: at first use, `nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC` compiles each source of `SOURCES` (the blend
 kernels, `csrc/lod_preprocess.cu`, whose wrapper is `ops/lod_preprocess.py`,
-and `csrc/sparse_adam.cu`, whose wrapper is `optim.sparse_adam_cuda`) into
+`csrc/sparse_adam.cu`, whose wrapper is `optim.sparse_adam_cuda`, and
+`csrc/train_preprocess.cu`, whose wrapper is `ops/train_preprocess.py`) into
 a shared library with a plain C launcher under `hlod_gaussians_torch/
 _build/`, named by a hash of that source and its flags, and loads it with
 ctypes. `build()` starts one nvcc per missing
@@ -49,23 +50,30 @@ from hlod_gaussians_torch.ops.rasterize_xla import (N_FEATS,
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("blend_forward", "blend_backward", "lod_preprocess",
-                        "sparse_adam")}
+                        "sparse_adam", "train_preprocess")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# lod_preprocess and sparse_adam follow their plain versions' rounding op
-# by op: no FMAs
+# lod_preprocess, sparse_adam and train_preprocess follow their plain
+# versions' rounding op by op: no FMAs
 EXTRA_FLAGS = {"lod_preprocess": ("-fmad=false",),
-               "sparse_adam": ("-fmad=false",)}
+               "sparse_adam": ("-fmad=false",),
+               "train_preprocess": ("-fmad=false",)}
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# each library's `<name>_launch` signature
+# the signature of each launcher `<key>_launch`; a library's launchers are
+# LAUNCHERS[name], by default `<name>_launch` alone
+_TRAIN_PRE = [_p] * 13 + [_f, _f] + [_i] * 5 + [_f] * 4 + [_i]
 ARGTYPES = {
     "blend_forward": [_p] * 4 + [_i] * 6 + [_f, _f, _i] + [_p] * 5,
     "blend_backward": [_p] * 8 + [_i] * 6 + [_f, _i, _p, _p],
     "lod_preprocess": ([_p] * 10 + [_f, _f] + [_i] * 6 + [_f] * 4 + [_i]
                        + [_p] * 7),
     "sparse_adam": [_i] + [_p] * 5 + [_f] * 7 + [_p],
+    "train_preprocess_forward": _TRAIN_PRE + [_p] * 7,
+    "train_preprocess_backward": _TRAIN_PRE + [_p] * 9,
 }
+LAUNCHERS = {"train_preprocess": ("train_preprocess_forward",
+                                  "train_preprocess_backward")}
 
 
 def _flags(name: str) -> tuple:
@@ -136,9 +144,10 @@ def build(names=tuple(SOURCES)) -> dict:
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build((name,))[name][0]))
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = ARGTYPES[name]
-    launch.restype = ctypes.c_int
+    for key in LAUNCHERS.get(name, (name,)):
+        launch = getattr(lib, f"{key}_launch")
+        launch.argtypes = ARGTYPES[key]
+        launch.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

@@ -1,6 +1,7 @@
 """Render facade: project -> SH color -> bin -> blend (port of
 hlod_gaussians_tpu/render.py): render_arrays and its `render` wrapper,
-apply_exposure, tau_to_threshold, and the hierarchical-LOD entry points
+render_params (the training steps' render of raw parameters), apply_exposure,
+tau_to_threshold, and the hierarchical-LOD entry points
 render_lod (budgeted), render_lod_masked (dense cuts) and
 render_lod_stream (the viewer loop, which chooses between the two, regulated
 with a one-frame lag).
@@ -15,9 +16,10 @@ kernel B1 and differentiates through kernel B2 (ops/rasterize.py); the xla
 backend blends with the plain scan and differentiates through autograd.
 
 Spans (utils/metrics.span): render_arrays opens `hlod.project`, `hlod.bin`
-and `hlod.blend` (B1's feature rows and the blend), and so does
+and `hlod.blend` (B1's feature rows and the blend), and so do
 render_lod_masked, whose `hlod.project` holds the lod_preprocess pass (the
-lerp and the feature rows included); the LOD entry points
+lerp and the feature rows included), and render_params, whose
+`hlod.project` holds the train_preprocess forward; the LOD entry points
 `hlod.cut`, `hlod.compact` (the budgeted path) and `hlod.interp` (on the
 masked path only the table's lookup); render_lod_stream `hlod.lod_stream`
 around its frame, whose feedback it adds to `counters` as it reads it.
@@ -32,10 +34,12 @@ import torch
 
 from hlod_gaussians_torch.config import RasterizerConfig
 from hlod_gaussians_torch.hierarchy import cut as cut_mod
-from hlod_gaussians_torch.models.gaussians import NODE_DEPTH, NODE_PARENT
+from hlod_gaussians_torch.models.gaussians import (NODE_DEPTH, NODE_PARENT,
+                                                  activate)
 from hlod_gaussians_torch.ops import gaussian_math, sh as sh_ops
 from hlod_gaussians_torch.ops.binning import bin_gaussians, tile_grid
 from hlod_gaussians_torch.ops.lod_preprocess import lod_preprocess
+from hlod_gaussians_torch.ops.train_preprocess import train_preprocess
 from hlod_gaussians_torch.ops.rasterize import rasterize_tiles
 from hlod_gaussians_torch.ops.rasterize_xla import (blend_features,
                                                     rasterize_scan)
@@ -111,6 +115,49 @@ def render_arrays(
                                   *((ts, kids) if use_lod else ())),
         bg, width=width, height=height, cfg=cfg, k_max=k_max,
         use_lod=use_lod, want_seen=want_seen, band=band)
+
+
+def render_params(
+    g,                          # models.gaussians.GaussianState, raw params
+    valid: Optional[torch.Tensor],   # [C] bool, or None: g.alive alone
+    world_view: torch.Tensor, full_proj: torch.Tensor, campos: torch.Tensor,
+    tan_fovx, tan_fovy,
+    bg: torch.Tensor,
+    xy_offset: Optional[torch.Tensor] = None,
+    *,
+    sh_degree: int,
+    width: int, height: int,
+    cfg: RasterizerConfig = RasterizerConfig(),
+    k_max: int = 1024,
+    antialiasing: bool = False,
+) -> RenderResult:
+    """The training steps' render of a state's raw parameters, where
+    g.alive & valid, differentiable with respect to them and xy_offset.
+
+    On CPU tensors: activate, then render_arrays. On CUDA tensors the
+    activations, projection, SH colour and feature rows are the
+    train_preprocess kernels in `hlod.project` (one launch forward, one in
+    the backward) and the binning and blend are render_arrays'."""
+    if g.xyz.device.type == "cpu":
+        act = activate(g, valid)
+        return render_arrays(
+            act.means3d, act.scales, act.quats, act.opacities, act.shs,
+            act.valid, world_view, full_proj, campos, tan_fovx, tan_fovy,
+            bg, None, None, xy_offset, sh_degree=sh_degree, width=width,
+            height=height, cfg=cfg, k_max=k_max, antialiasing=antialiasing)
+    with span("hlod.project"):
+        rows = train_preprocess(
+            g.xyz, g.log_scale, g.quat, g.opacity_logit, g.f_dc, g.f_rest,
+            g.alive if valid is None else g.alive & valid, world_view,
+            full_proj, campos, tan_fovx, tan_fovy, xy_offset, width=width,
+            height=height, sh_degree=sh_degree, dilation=cfg.dilation,
+            near=cfg.near, big_limit=cfg.big_limit,
+            antialiasing=antialiasing)
+    feats = rows.feats
+    return _bin_and_blend(
+        feats[:, :2], rows.depth, rows.radius, rows.valid, rows.ext,
+        rows.reff2, lambda xy: feats, bg, width=width, height=height,
+        cfg=cfg, k_max=k_max, use_lod=False)
 
 
 def _bin_and_blend(xy, depth, radius, visible, ext, reff2, features, bg, *,

@@ -91,13 +91,10 @@ def step_loss(
     """The forward half of train_step: render `params` (with the state's
     other fields) and score the view -> (loss, (render result, image, l1,
     ssim, depth_l1))."""
-    act = gm.activate(g.replace_params(params))
-    out = render_mod.render_arrays(
-        act.means3d, act.scales, act.quats, act.opacities, act.shs,
-        act.valid, world_view, full_proj, campos, tan_fovx, tan_fovy,
-        bg, None, None, xy_offset,
-        sh_degree=sh_degree, width=width, height=height, cfg=cfg,
-        k_max=k_max, antialiasing=antialiasing)
+    out = render_mod.render_params(
+        g.replace_params(params), None, world_view, full_proj, campos,
+        tan_fovx, tan_fovy, bg, xy_offset, sh_degree=sh_degree, width=width,
+        height=height, cfg=cfg, k_max=k_max, antialiasing=antialiasing)
     with span("hlod.loss"):
         image = out.image
         if use_exposure and exposure_idx is not None:
@@ -142,7 +139,7 @@ def train_step(
     big_gauss_frac: float = 0.02,
 ) -> Tuple[FlatTrainState, StepAux]:
     """One optimization step on a single view, inside the `hlod.train_step`
-    span: render_arrays' spans, then `hlod.loss`, `hlod.backward` and
+    span: render_params' spans, then `hlod.loss`, `hlod.backward` and
     `hlod.adam` (densification statistics, masked Adam, the shrink)."""
     with span("hlod.train_step"):
         g = ts.gaussians

@@ -185,12 +185,11 @@ def post_loss(
     """The forward half of post_train_step: render `params` over the working
     set (and the skybox) and score the view in `hlod.loss` -> (loss,
     (render result, image, l1, ssim))."""
-    act = gm.activate(g.replace_params(params), cut_mask | g.skybox_mask)
-    out = render_mod.render_arrays(
-        act.means3d, act.scales, act.quats, act.opacities, act.shs,
-        act.valid, world_view, full_proj, campos, tan_fovx, tan_fovy, bg,
-        sh_degree=sh_degree, width=width, height=height, cfg=cfg,
-        k_max=k_max, antialiasing=antialiasing)
+    out = render_mod.render_params(
+        g.replace_params(params), cut_mask | g.skybox_mask, world_view,
+        full_proj, campos, tan_fovx, tan_fovy, bg, sh_degree=sh_degree,
+        width=width, height=height, cfg=cfg, k_max=k_max,
+        antialiasing=antialiasing)
     with span("hlod.loss"):
         image = out.image
         l1 = torch.abs(image - gt_image).mean()
@@ -228,7 +227,7 @@ def post_train_step(
     eps: Optional[torch.Tensor] = None,
 ) -> Tuple[PostTrainState, PostAux]:
     """One post-optimization step over the masked working set
-    (train_post.py:495-620 + 790-818): render_arrays' spans, then
+    (train_post.py:495-620 + 790-818): render_params' spans, then
     `hlod.loss`, `hlod.backward` and `hlod.adam` (the skybox gradient
     mask, masked Adam and the noise). ``eps`` ([C,3]) is the exploration
     noise's normal draw; without it `mcmc_noise` draws one when

@@ -7,12 +7,13 @@ stream) and the port's own tracing: spans and counters.
 `span(name)` marks a stretch of host code on torch.profiler's clock. The
 port opens `hlod.*` spans inside its entry points: `hlod.train_step`
 (train/flat.py) around `hlod.project`, `hlod.bin` and `hlod.blend`
-(render.render_arrays), `hlod.loss`, `hlod.backward` and `hlod.adam`;
-`hlod.lod_stream` (render.render_lod_stream) around `hlod.cut`,
-`hlod.compact`, `hlod.interp` and render_arrays' three;
-`hlod.post_step` (pipeline/full_train.py's post_iteration) around
-`hlod.spt_cut` (the SPT cut and the occlusion cull), render_arrays'
-three, `hlod.loss`, `hlod.backward` and `hlod.adam` (train/post.py's
+(render.render_params, as render.render_arrays opens them), `hlod.loss`,
+`hlod.backward` and `hlod.adam`; `hlod.lod_stream`
+(render.render_lod_stream) around `hlod.cut`, `hlod.compact`,
+`hlod.interp` and render_arrays' three; `hlod.post_step`
+(pipeline/full_train.py's post_iteration) around `hlod.spt_cut` (the SPT
+cut and the occlusion cull), render_params' three, `hlod.loss`,
+`hlod.backward` and `hlod.adam` (train/post.py's
 post_train_step) and, in a step with an MCMC round, `hlod.densify`
 (densify_round) and `hlod.rebuild_spt` (rebuild_spt, which the set-up of
 a post run opens too). A span records only while a profiler runs, so any
@@ -29,7 +30,10 @@ full_train.read_post_step adds each post step's feedback it reads,
 `post.ws_rows` (the SPT cut's working-set rows) and
 `post.rows_projected` (the rows the step's per-row work covered: the
 state's capacity); optim.sparse_adam_cuda adds, at each launch of kernel
-sparse_adam, `adam.rows_fused` (the rows it covered: the capacity).
+sparse_adam, `adam.rows_fused` (the rows it covered: the capacity);
+ops/train_preprocess.py adds, at each launch of kernel
+train_preprocess_forward, `project.rows_fused` (the rows it covered: the
+capacity).
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
 """Run a CUDA kernel's source on the CPU: the translation that the emulated
 kernel tests (tests/test_torch_b1_emulated.py, test_torch_b2_emulated.py,
-test_torch_lod_preprocess_emulated.py, test_torch_sparse_adam_emulated.py)
-share, and the small scenes the blend tests feed it.
+test_torch_lod_preprocess_emulated.py, test_torch_sparse_adam_emulated.py,
+test_torch_train_preprocess_emulated.py) share, and the small scenes the
+blend tests feed it.
 
 A CUDA kernel has no CPU mode, so `translate` turns a `.cu` source into C++
 that g++ builds on top of EMUL_H: one std::thread per CUDA thread,
 std::barrier for __syncthreads (and its _count / _or votes) and for the warp
 collectives (__syncwarp, shuffles, votes, ballots, max), a synchronous copy
-for cp.async (16 bytes .cg, 8 bytes .ca), `static` for __shared__ (blocks
+for cp.async (16 bytes .cg, 8 and 4 bytes .ca), `static` for __shared__ (blocks
 run one after another), and the launch as a loop over blocks. That runs the
 kernel's own control flow without a GPU. The arithmetic is the host's, so
 results agree with the plain versions to rounding, as on the card. A test
@@ -164,6 +165,8 @@ def translate(src: str) -> str:
         (r"__shared__ ", "static ", False),
         (r'asm volatile\("cp\.async\.cg.*?\);', "std::memcpy(dst, src, 16);",
          False),
+        (r'asm volatile\("cp\.async\.ca\.shared\.global \[%0\], \[%1\], 4;'
+         r'.*?\);', "std::memcpy(dst, src, 4);", False),
         (r'asm volatile\("cp\.async\.ca.*?, 8;.*?\);',
          "std::memcpy(dst, src, 8);", False),
         (r'asm volatile\("cp\.async\.commit_group.*?\);', "", False),

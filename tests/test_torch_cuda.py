@@ -9,9 +9,11 @@ post steps and an MCMC round repeated bitwise in PyTorch's default mode,
 GMSD at 1080p against the CPU under the default cuDNN TF32 setting, the
 kNN scale init of the pipeline's ground truth against the CPU,
 bench_torch.py's full-size step, the masked LOD path's lod_preprocess
-kernel against its plain version (alone and in a tau-0 stream), and kernel
+kernel against its plain version (alone and in a tau-0 stream), kernel
 sparse_adam against its plain chain bit for bit (alone and inside a train
-and a post step). Every
+and a post step), and the train_preprocess kernels against their plain
+chain and its autograd gradient (alone, and the train and post steps'
+gradients through either, one launch of each a step). Every
 test here is marked `cuda` and skips
 without a GPU: a CUDA kernel has no CPU mode. This file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -1343,3 +1345,201 @@ def test_cuda_steps_with_sparse_adam_equal_the_plain_chain(step, cuda_device,
             assert torch.equal(_bits(getattr(fused.adam, part)[k]),
                                _bits(getattr(plain.adam, part)[k])), \
                 (part, k)
+
+
+def _raw_rows(dev, n, k_rest, seed=5):
+    """n rows of raw parameters (f_rest of k_rest coefficients) on `dev`,
+    some behind the near plane, beyond the clamp of tx and too faint to
+    draw, an xy_offset and a camera off the origin."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.normal(size=(n, 3)) * [1.5, 1.2, 1.0]
+    xyz[:, 2] = rng.uniform(0.5, 6.0, n)
+    xyz[:n // 30, 2] = rng.uniform(-3.0, 0.15, n // 30)
+    cut = slice(n // 30, n // 15)
+    xyz[cut, 0] = xyz[cut, 2] * rng.uniform(0.7, 1.5, n // 15 - n // 30)
+    logit = rng.normal(size=(n, 1)) * 2.0
+    logit[-n // 30:] = -9.0
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    p = [t(a) for a in (xyz, rng.normal(size=(n, 3)) * 0.5 - 2.5,
+                        rng.normal(size=(n, 4)), logit,
+                        rng.normal(size=(n, 1, 3)) * 0.5,
+                        rng.normal(size=(n, k_rest, 3)) * 0.3)]
+    cam = make_camera(np.eye(3), np.array([0.1, -0.1, 0.0]), 0.9, 0.7, W, H,
+                      device=dev)
+    return p, t(rng.normal(size=(n, 2)) * 0.5), cam, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sh_degree, aa, share, offset",
+                         [(3, False, 1.0, True), (1, True, 0.42, False)],
+                         ids=["sh3-all-rows", "sh1-of-3-aa-42pc"])
+def test_cuda_train_preprocess_matches_plain(sh_degree, aa, share, offset,
+                                             cuda_device):
+    """The train_preprocess kernels against train_preprocess_plain and
+    its autograd gradient, both on the card, at 5,000 rows of SH 3
+    storage: valid and radius equal, the valid rows' feature rows, depth,
+    ext and reff2 to rounding, the culled rows sanitised; every
+    parameter's gradient and xy_offset's within 1e-5 of its largest
+    magnitude plus 1e-4 relative, the rows outside the mask zero; one
+    launch forward, one backward, two runs bitwise equal, the capacity
+    added to project.rows_fused."""
+    from hlod_gaussians_torch.ops import train_preprocess as tp
+    from hlod_gaussians_torch.utils.metrics import counters
+    n = 5000
+    p, xy, cam, rng = _raw_rows(cuda_device, n, 15)
+    mask = torch.as_tensor(rng.uniform(size=n) < share, device=cuda_device)
+    xy = xy if offset else None
+    g = torch.as_tensor(rng.normal(size=(n, 12)).astype(np.float32),
+                        device=cuda_device) * mask[:, None]
+    args = (mask, cam.world_view, cam.full_proj, cam.campos, cam.tan_fovx,
+            cam.tan_fovy)
+    kw = dict(width=W, height=H, sh_degree=sh_degree, antialiasing=aa)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in p]
+        xy_leaf = None if xy is None else xy.clone().requires_grad_(True)
+        out = fn(*leaves, *args, xy_leaf, **kw)
+        wrt = leaves + ([] if xy is None else [xy_leaf])
+        return out, torch.autograd.grad(out.feats, wrt, g)
+
+    launches = (tp.train_preprocess_forward.launches,
+                tp.train_preprocess_backward.launches)
+    rows = counters["project.rows_fused"]
+    (got, got_g), (again, again_g) = run(tp.train_preprocess), \
+        run(tp.train_preprocess)
+    torch.cuda.synchronize()
+    assert (tp.train_preprocess_forward.launches,
+            tp.train_preprocess_backward.launches) == (
+                launches[0] + 2, launches[1] + 2)
+    assert counters["project.rows_fused"] == rows + 2 * n
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got_g, again_g))
+    ref, ref_g = run(tp.train_preprocess_plain)
+    valid = ref.valid
+    assert 0 < int(valid.sum()) < int(mask.sum())
+    assert torch.equal(got.valid, valid)
+    assert torch.equal(got.radius, ref.radius)
+    feats = ref.feats.detach()
+    for k in ("depth", "ext", "reff2"):
+        torch.testing.assert_close(getattr(got, k)[valid],
+                                   getattr(ref, k)[valid], rtol=2e-5,
+                                   atol=2e-5)
+        assert torch.equal(getattr(got, k)[~valid], getattr(ref, k)[~valid])
+    torch.testing.assert_close(got.feats[valid], feats[valid], rtol=2e-5,
+                               atol=2e-5)
+    sanitised = [0, 1, 2, 3, 4, 5, 9, 10, 11]
+    assert torch.equal(got.feats[~valid][:, sanitised],
+                       feats[~valid][:, sanitised])
+    names = tp._PARAMS + (("xy_offset",) if offset else ())
+    for name, a, b in zip(names, got_g, ref_g):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1e-30),
+            msg=lambda m, name=name: f"{name}: {m}")
+        if name != "xy_offset":
+            assert not a[~mask].any(), name
+
+
+def _leaf_gap(got: dict, ref: dict) -> dict:
+    """Per leaf, the norm of the gradients' difference over the larger of
+    the leaf's norm and the median leaf's (the benchmark's grad_gap)."""
+    norms = {k: float(v.norm()) for k, v in ref.items()}
+    med = float(np.median(list(norms.values())))
+    return {k: float((got[k] - ref[k]).norm()) / max(norms[k], med, 1e-30)
+            for k in ref}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["flat", "post"])
+def test_cuda_training_steps_through_train_preprocess(step, cuda_device,
+                                                      monkeypatch):
+    """The loss of flat.train_step (every 4th bench Gaussian, SH 3, 1080p,
+    the screen-space hook) and of post.post_train_step (a 4,000-leaf tree
+    at SH 1, antialiasing, the working set and the skybox) on the card,
+    differentiated through the train_preprocess kernels and through the
+    plain chain in their place: each leaf's gradient within 1e-3 of the
+    larger of its norm and the median leaf's (the benchmark's grad_gap; its
+    limits are 1e-2 and 2e-3). Then one whole step launches the forward
+    and the backward kernel exactly once each, and lod_preprocess never."""
+    from hlod_gaussians_torch.ops import train_preprocess as tp
+    from hlod_gaussians_torch.train import flat, post
+    bg = torch.zeros(3, device=cuda_device)
+    if step == "flat":
+        ts = _bench_flat_state(cuda_device)
+        g = ts.gaussians
+        cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, 1920, 1080,
+                          device=cuda_device)
+        gt = torch.as_tensor(np.random.default_rng(8).uniform(
+            0, 1, (3, 1080, 1920)).astype(np.float32), device=cuda_device)
+        cfg = RasterizerConfig(backend="pallas", tile_w=32, tile_h=32,
+                               max_dup=352 * 1024, tight_binning=True)
+
+        def grads():
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in g.params().items()}
+            xy = torch.zeros((g.capacity, 2), device=cuda_device,
+                             requires_grad=True)
+            loss, _ = flat.step_loss(
+                g, params, xy, cam.world_view, cam.full_proj, cam.campos,
+                cam.tan_fovx, cam.tan_fovy, gt, bg, exposure_idx=0,
+                opt=OptimizationConfig(), cfg=cfg, width=1920, height=1080,
+                k_max=1024, sh_degree=3, use_exposure=True,
+                antialiasing=False)
+            wrt = dict(params, xy_offset=xy)
+            return dict(zip(wrt, torch.autograd.grad(
+                loss, list(wrt.values()), allow_unused=True)))
+
+        def whole_step():
+            flat.train_step(ts, cam.world_view, cam.full_proj, cam.campos,
+                            cam.tan_fovx, cam.tan_fovy, gt, bg,
+                            exposure_idx=0, scene_extent=8.0, cfg=cfg,
+                            width=1920, height=1080, sh_degree=3)
+    else:
+        state, _, cam, cut, pcfg = _post_scene(cuda_device, n=4000,
+                                               cap=1 << 13)
+        ts = post.init_post_train(dataclasses.replace(
+            state, f_dc=state.f_dc + 0.2))
+        g = ts.gaussians
+        gt = torch.as_tensor(np.random.default_rng(8).uniform(
+            0, 1, (3, H, W)).astype(np.float32), device=cuda_device)
+        cfg = RasterizerConfig(tile_w=16, tile_h=16, max_dup=1 << 16)
+
+        def grads():
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in g.params().items()}
+            loss, _ = post.post_loss(
+                g, params, cut.gaussian_mask, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, gt, bg,
+                opt=OptimizationConfig(), post=pcfg, cfg=cfg, width=W,
+                height=H, k_max=1024, sh_degree=1, antialiasing=True)
+            return dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True)))
+
+        def whole_step():
+            post.post_train_step(
+                ts, cut.gaussian_mask, cam.world_view, cam.full_proj,
+                cam.campos, cam.tan_fovx, cam.tan_fovy, gt, bg, 3.0,
+                post=pcfg, cfg=cfg, width=W, height=H)
+    launches = (tp.train_preprocess_forward.launches,
+                tp.train_preprocess_backward.launches)
+    got = grads()
+    assert (tp.train_preprocess_forward.launches,
+            tp.train_preprocess_backward.launches) == (
+                launches[0] + 1, launches[1] + 1)
+    with monkeypatch.context() as m:
+        m.setattr(render, "train_preprocess", tp.train_preprocess_plain)
+        ref = grads()
+    assert (tp.train_preprocess_forward.launches,
+            tp.train_preprocess_backward.launches) == (
+                launches[0] + 1, launches[1] + 1)
+    ref = {k: v for k, v in ref.items() if v is not None}
+    got = {k: got[k] for k in ref}
+    assert {k: v.any().item() for k, v in got.items()} == \
+        {k: v.any().item() for k, v in ref.items()}
+    gaps = _leaf_gap(got, ref)
+    assert max(gaps.values()) <= 1e-3, gaps
+    fused = lod_preprocess.launches
+    whole_step()
+    assert (tp.train_preprocess_forward.launches,
+            tp.train_preprocess_backward.launches) == (
+                launches[0] + 2, launches[1] + 2)
+    assert lod_preprocess.launches == fused
